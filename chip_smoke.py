@@ -5,15 +5,26 @@
 Phases (any failure exits non-zero):
   1. setup: versions, the card's name and power limit, TF32 off, build the
      CUDA kernels of `lss2_multimodal_nu_tpu_torch/csrc/` with nvcc (timed);
-  2. every kernel against its plain PyTorch version at the flagship's B=6
-     shapes, in float32 and bfloat16: max errors against the stated
-     tolerances, median kernel / plain / library times over CUDA-event timed
-     runs, and the least time the card could take (bound);
+  2. every forward kernel against its plain PyTorch version at the
+     flagship's B=6 shapes, in float32 and bfloat16: max errors against the
+     stated tolerances, median kernel / plain / library times over
+     CUDA-event timed runs, and the least time the card could take (bound);
+  2b. the deformable-sampling backward kernel against its plain version at
+     the train-v2 shapes (B=8), in float32 and bfloat16, each of its four
+     outputs checked; the lift-splat backward (PyTorch ops) timed;
   3. the flagship eval forward (VoVNetBEVTransformer, vovnet39, LSS v2, V3,
      6 cameras at 128x352 into a 200x200 BEV, B=6, bfloat16) through
      `build_model`, with every kernel's launch count checked, then timed;
   4. the same weights and inputs in float32 at B=1 on the card (kernels)
-     against the CPU (plain versions).
+     against the CPU (plain versions);
+  5. the flagship train step (train-v2: B=8, lr 1e-4, wd 1e-8, clip 10, the
+     warmup-cosine schedule, bfloat16) through `train/steps.py::train_step`,
+     with every kernel's launch count checked, 5 steps on one batch that
+     must move the loss, then timed and profiled;
+  6. one float32 train step at B=1, dropout off, on the card against the
+     CPU: loss, grad_norm and the gradients upstream of both sampling
+     kernels, printed beside the card's own spread from weights moved by
+     1e-7, the yardstick of their limits.
 
 The last lines are the card (nvidia-smi), one JSON object with every
 kernel's numbers, and `{"ok": true, "device": {...}}`. Needs one CUDA card;
@@ -22,6 +33,7 @@ imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -35,6 +47,23 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
 B, NCAM, IMG_H, IMG_W = 6, 6, 128, 352
 NH, DH, NPTS, GRID = 8, 32, 8, 200
+# train-v2 (the JAX package's `cli.py` defaults): batch 8, lr 1e-4, wd 1e-8,
+# clip 10, 60 epochs with 5 of warmup. One epoch counts as one step here, so
+# that the smoke's few steps climb the warmup and the loss can move (with a
+# dataset's thousands of batches per epoch the rate would stay near 0).
+TRAIN_B, STEPS_PER_EPOCH = 8, 1
+# phase 6: a float32 gradient on the card against the CPU's, per leaf. At
+# random weights the float32 gradient is chaotic: round-off in another order
+# flips ReLUs and bilinear cells. Phase 6 measures that on the card alone,
+# from weights moved by 1e-7 (H100): max |diff| over the leaf's max |grad|
+# up to 0.086 (a depth-net conv), norm of diff over norm up to 0.019 (the
+# stem); the card against the CPU differs as much. Limits, about 2.5 times
+# those: GRAD_TOL 0.2 on the max and GRAD_NORM_TOL 0.05 on the norm, so a
+# leaf scaled wrongly by 5% or more fails. The leaves that reach a kernel only
+# through its linear path (cam_encode into lift-splat, value_proj into the
+# sampling) moved by at most 6.4e-4 in the control: GRAD_TOL_LINEAR 1e-2. A
+# gradient that is cut off is off by 1.
+GRAD_TOL, GRAD_NORM_TOL, GRAD_TOL_LINEAR = 0.2, 0.05, 1e-2
 
 
 def _fail(msg: str) -> int:
@@ -101,17 +130,68 @@ def time_ms(fn, reps=20, warmup=3):
 
 def device_profile(fn, top=12):
     """Device time by kernel name over one call of `fn` under torch.profiler
-    (CUPTI): the busiest kernels and the total busy time, in ms."""
+    (CUPTI): the busiest kernels and copies and their total busy time, in ms.
+    Ranges that annotate the device timeline (`Optimizer.step#Adam.step`)
+    are not work of their own and are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     rows = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count) for e in kern),
                   key=lambda r: -r[1])
     return sum(r[1] for r in rows), rows[:top]
+
+
+def lift_inputs(dev, b, seed=7):
+    """Lift-splat operands at batch b: the real frustum geometry of the
+    flagship inputs, softmax depth weights, feature rows from a numpy seed.
+    Returns (feat (B, R, 128) float32, depth, seg, fidx, n_voxels, n_valid)."""
+    import numpy as np
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.config import GridConfig
+    from lss2_multimodal_nu_tpu_torch.core.frustum import create_frustum
+    from lss2_multimodal_nu_tpu_torch.core.geometry import get_geometry, voxel_indices
+    from lss2_multimodal_nu_tpu_torch.core.grid import gen_dx_bx
+    from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
+
+    rng = np.random.default_rng(seed)
+    grid = GridConfig()
+    dx, bx, nx = gen_dx_bx(grid.xbound, grid.ybound, grid.zbound)
+    frustum = torch.from_numpy(create_frustum((IMG_H, IMG_W), grid.dbound, 16)).to(dev)
+    _, rots, trans, intr, post_r, post_t = (torch.from_numpy(a).to(dev) for a in fake_inputs(b))
+    idx, valid = voxel_indices(get_geometry(frustum, rots, trans, intr, post_r, post_t), dx, bx, nx)
+    d, fh, fw = frustum.shape[:3]
+    p = NCAM * d * fh * fw
+    idx_f, valid_f = idx.reshape(b, p, 3), valid.reshape(b, p)
+    seg = torch.where(valid_f, (idx_f[..., 2] * GRID + idx_f[..., 0]) * GRID + idx_f[..., 1], 0)
+    logits = torch.from_numpy(rng.normal(size=(b, NCAM, d, fh, fw)).astype(np.float32)).to(dev)
+    depth = torch.where(valid_f, torch.softmax(logits, 2).reshape(b, p), 0.0)
+    fidx = torch.as_tensor(ls._feature_rows(NCAM, d, fh, fw), device=dev)[None].expand(b, p)
+    feat = torch.from_numpy(rng.normal(size=(b, NCAM * fh * fw, 128)).astype(np.float32)).to(dev)
+    return (feat, depth, seg.to(torch.int32), fidx.contiguous(), GRID * GRID,
+            int(valid_f.sum()))
+
+
+def deform_inputs(dev, bh, seed=7):
+    """Sampling operands for bh value maps of the 200x200 grid: v, locations
+    in [0, 1] with 5% clamped to the edges, softmax weights, from a numpy
+    seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = GRID * GRID
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    v = t(rng.normal(size=(bh, n, DH)))
+    lx = torch.clamp(t(rng.uniform(0, 1, size=(bh, NPTS, n))) * 1.1 - 0.05, 0, 1)
+    ly = torch.clamp(t(rng.uniform(0, 1, size=(bh, NPTS, n))) * 1.1 - 0.05, 0, 1)
+    attn = torch.softmax(t(rng.normal(size=(bh, NPTS, n))), dim=1)
+    return v, lx, ly, attn
 
 
 def kernel_cases(dev):
@@ -123,10 +203,6 @@ def kernel_cases(dev):
     import numpy as np
     import torch
 
-    from lss2_multimodal_nu_tpu_torch.config import GridConfig
-    from lss2_multimodal_nu_tpu_torch.core.frustum import create_frustum
-    from lss2_multimodal_nu_tpu_torch.core.geometry import get_geometry, voxel_indices
-    from lss2_multimodal_nu_tpu_torch.core.grid import gen_dx_bx
     from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
     from lss2_multimodal_nu_tpu_torch.ops import ffn
     from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
@@ -135,33 +211,15 @@ def kernel_cases(dev):
     rng = np.random.default_rng(7)
     g = lambda *s, scale=1.0: torch.from_numpy(
         (rng.normal(size=s) * scale).astype(np.float32)).to(dev)
-    u = lambda *s: torch.from_numpy(rng.uniform(0, 1, size=s).astype(np.float32)).to(dev)
     cases = []
     n = GRID * GRID
     bh = B * NH
 
-    # 1. deformable sampling: locations in [0, 1] with 5% clamped to the edges
-    v = g(bh, n, DH)
-    lx, ly = u(bh, NPTS, n), u(bh, NPTS, n)
-    lx = torch.clamp(lx * 1.1 - 0.05, 0, 1)
-    ly = torch.clamp(ly * 1.1 - 0.05, 0, 1)
-    attn = torch.softmax(g(bh, NPTS, n), dim=1)
-    # 2. lift-splat: the real frustum geometry of the flagship inputs
-    grid = GridConfig()
-    dx, bx, nx = gen_dx_bx(grid.xbound, grid.ybound, grid.zbound)
-    frustum = torch.from_numpy(create_frustum((IMG_H, IMG_W), grid.dbound, 16)).to(dev)
-    _, rots, trans, intr, post_r, post_t = (torch.from_numpy(a).to(dev) for a in fake_inputs(B))
-    idx, valid = voxel_indices(get_geometry(frustum, rots, trans, intr, post_r, post_t), dx, bx, nx)
-    d, fh, fw = frustum.shape[:3]
-    p = NCAM * d * fh * fw
-    idx_f, valid_f = idx.reshape(B, p, 3), valid.reshape(B, p)
-    seg = torch.where(valid_f, (idx_f[..., 2] * 200 + idx_f[..., 0]) * 200 + idx_f[..., 1], 0)
-    seg = seg.to(torch.int32)
-    depth = torch.where(valid_f, torch.softmax(g(B, NCAM, d, fh, fw), 2).reshape(B, p), 0.0)
-    fidx = torch.as_tensor(ls._feature_rows(NCAM, d, fh, fw), device=dev)[None].expand(B, p)
-    fidx = fidx.contiguous()
-    feat = g(B, NCAM * fh * fw, 128)
-    n_valid = int(valid_f.sum())
+    # 1. deformable sampling, 2. lift-splat
+    v, lx, ly, attn = deform_inputs(dev, bh)
+    feat, depth, seg, fidx, _, n_valid = lift_inputs(dev, B)
+    p = depth.shape[1]
+    fh_fw = feat.shape[1] // NCAM
     # 4. FFN tail and 5. seg head
     tok = g(B, n, 256)
     fw_ = dict(w1=g(256, 1024, scale=0.05), b1=g(1024, scale=0.1), w2=g(1024, 256, scale=0.05),
@@ -197,7 +255,7 @@ def kernel_cases(dev):
             plain=lambda fd=fd: ls.fused_lift_splat_plain(fd, depth, seg, fidx, n),
             library=lambda lifted=lifted, segflat=segflat, acc=acc: acc.zero_().index_add_(
                 0, segflat, lifted),
-            bytes=B * NCAM * fh * fw * 128 * es + 3 * B * p * 4 + B * n * 128 * es,
+            bytes=B * NCAM * fh_fw * 128 * es + 3 * B * p * 4 + B * n * 128 * es,
             ops=2 * n_valid * 128, op_dtype="float32",
             # float atomics add in a varying order
             rel_tol=2 ** -7 if bf else 1e-5,
@@ -239,17 +297,134 @@ def kernel_cases(dev):
     return cases
 
 
-# kernel -> (source, the TPU kernel it replaces, launches per forward)
+def backward_cases(dev):
+    """The deformable-sampling backward at the train-v2 shapes (B=8: 64 value
+    maps of 200x200x32, 8 points): (dtype, kernel_fn, plain_fn, bytes, ops,
+    tolerances per output). Bytes: v and g in, lx/ly/attn in, dv in v's
+    dtype and the three float32 small gradients out, each once (the float32
+    buffer that the kernel sums dv in is its own scratch, not an output of
+    the function). Ops: per
+    (map, point, query, channel) and corner, an FMA for rc (2) and a
+    multiply, a multiply and an add for dv (3), in float32."""
+    import numpy as np
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
+
+    bh, n = TRAIN_B * NH, GRID * GRID
+    v, lx, ly, attn = deform_inputs(dev, bh, seed=11)
+    g = torch.from_numpy(np.random.default_rng(12).normal(size=(bh, n, DH)).astype(np.float32)).to(dev)
+    cases = []
+    for dt, name_dt in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        es = 4 if dt == torch.float32 else 2
+        vd, gd = v.to(dt), g.to(dt)
+        cases.append(dict(
+            dtype=name_dt,
+            kernel=lambda vd=vd, gd=gd: ds.deformable_sample_combine_xy_backward(
+                vd, lx, ly, attn, gd, GRID, GRID),
+            plain=lambda vd=vd, gd=gd: ds.deformable_sample_combine_xy_backward_plain(
+                vd, lx, ly, attn, gd, GRID, GRID),
+            bytes=3 * bh * n * DH * es + 6 * bh * NPTS * n * 4,
+            ops=bh * n * NPTS * DH * 4 * 5,
+            # Ten times the errors measured on the H100 or more: dv 3.9e-6
+            # in float32 (atomics add in a varying order) and 1.6e-3 in
+            # bfloat16 (dv is rounded once at the end, and the order may
+            # flip that rounding); dlx/dly/dattn are float32 in both dtypes,
+            # 8.1e-6, where rc_01 - rc_00 cancels.
+            tol={"dv": 2 ** -6 if dt == torch.bfloat16 else 5e-5,
+                 "dlx": 1e-4, "dly": 1e-4, "dattn": 1e-4},
+        ))
+    return cases
+
+
+# kernel -> (source, the TPU kernel it replaces, launches per eval forward,
+# launches per train step). The `kernels` line's `launches` is the count in
+# the first path that runs the kernel: the eval forward for the four forward
+# kernels (its meaning since they were ported), the train step for the
+# backward, which only training runs.
 KERNELS = {
     "deformable_sample": ("lss2_multimodal_nu_tpu_torch/csrc/deformable_sample.cu",
-                          "lss2_multimodal_nu_tpu/ops/deformable_pallas.py:341", 1),
+                          "lss2_multimodal_nu_tpu/ops/deformable_pallas.py:341", 1, 1),
+    "deformable_sample_backward": (
+        "lss2_multimodal_nu_tpu_torch/csrc/deformable_sample_backward.cu",
+        "lss2_multimodal_nu_tpu/ops/deformable_pallas.py:484", 0, 1),
     "lift_splat": ("lss2_multimodal_nu_tpu_torch/csrc/lift_splat.cu",
-                   "lss2_multimodal_nu_tpu/ops/lift_splat_pallas.py:50", 1),
+                   "lss2_multimodal_nu_tpu/ops/lift_splat_pallas.py:50", 1, 1),
     "ffn_ln": ("lss2_multimodal_nu_tpu_torch/csrc/ffn_ln.cu",
-               "lss2_multimodal_nu_tpu/ops/ffn_pallas.py:87", 1),
+               "lss2_multimodal_nu_tpu/ops/ffn_pallas.py:87", 1, 0),
     "seg_head": ("lss2_multimodal_nu_tpu_torch/csrc/seg_head.cu",
-                 "lss2_multimodal_nu_tpu/ops/seg_head_pallas.py:63", 2),
+                 "lss2_multimodal_nu_tpu/ops/seg_head_pallas.py:63", 2, 0),
 }
+
+
+def train_batch(dev, b, seed):
+    """A train-v2 batch: fake_inputs plus BEV labels and action/description
+    targets from a numpy seed."""
+    import numpy as np
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.train.steps import MODEL_INPUTS
+
+    rng = np.random.default_rng(seed + 100)
+    batch = dict(zip(MODEL_INPUTS, (torch.from_numpy(a).to(dev) for a in fake_inputs(b, seed=seed))))
+    batch["binimg"] = torch.from_numpy(rng.integers(0, 4, size=(b, GRID, GRID))).to(dev)
+    batch["act"] = torch.from_numpy((rng.random((b, 4)) < 0.4).astype(np.float32)).to(dev)
+    batch["desc"] = torch.from_numpy((rng.random((b, 8)) < 0.4).astype(np.float32)).to(dev)
+    return batch
+
+
+def train_setup(dev, dtype, seed=0):
+    """(model in training mode, optimizer, scheduler) of the flagship under
+    train-v2, weights from `seed` plus `perturb`."""
+    from lss2_multimodal_nu_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+    from lss2_multimodal_nu_tpu_torch.train.state import build_optimizer
+
+    cfg = Config(model=ModelConfig(family="vovnet_transformer", vovnet_type="vovnet39",
+                                   lss_version="v2", compute_dtype=dtype),
+                 train=TrainConfig(batch_size=TRAIN_B, lr=1e-4, weight_decay=1e-8,
+                                   max_grad_norm=10.0, num_epochs=60, use_schedule=True))
+    model = build_model(cfg, device=dev, seed=seed)
+    perturb(model, seed=seed + 1)
+    opt, sched = build_optimizer(cfg, model.train(), steps_per_epoch=STEPS_PER_EPOCH)
+    return model, opt, sched
+
+
+def split_step_ms(model, opt, sched, batch, step, reps=5):
+    """Medians over `reps` train steps (from `step` on) of forward with the
+    loss, backward, and clip + Adam + schedule: CUDA events recorded where
+    `train_step` marks the end of each part."""
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_step, train_without_dropout
+
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for i in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True)]
+        ev[0].record()
+
+        def mark(part):
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+
+        train_step(model, opt, sched, batch, step + i, mark=mark)
+        ev[-1].synchronize()
+        for k, a, b in zip(parts, ev, ev[1:]):
+            parts[k].append(a.elapsed_time(b))
+    return {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+
+
+def grad_diffs(got, want, names):
+    """{leaf: (max |diff| / max |want|, norm of diff / norm of want,
+    max |want|)} of two models' gradients."""
+    gp, wp = dict(got.named_parameters()), dict(want.named_parameters())
+    out = {}
+    for n in names:
+        a, b = gp[n].grad.cpu(), wp[n].grad.cpu()
+        scale = float(b.abs().max())
+        out[n] = (float((a - b).abs().max()) / max(scale, 1e-30),
+                  float((a - b).norm() / max(float(b.norm()), 1e-30)), scale)
+    return out
 
 
 def main() -> int:
@@ -270,6 +445,7 @@ def main() -> int:
     from lss2_multimodal_nu_tpu_torch.ops import ffn
     from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
     from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_step, train_without_dropout
 
     dev = torch.device("cuda", 0)
 
@@ -318,6 +494,38 @@ def main() -> int:
     if not ok:
         return _fail("a kernel disagrees with its plain version")
 
+    # ---- 2b. the deformable-sampling backward kernel at the train-v2 shapes
+    bwd_rows = {}
+    for c in backward_cases(dev):
+        got, ref = c["kernel"](), c["plain"]()
+        torch.cuda.synchronize()
+        kms = time_ms(c["kernel"])
+        pms = time_ms(c["plain"], reps=5, warmup=1)
+        t_bytes, t_ops = c["bytes"] / HBM_BYTES_PER_S * 1e3, c["ops"] / PEAK_OPS["float32"] * 1e3
+        for out, a, b in zip(("dv", "dlx", "dly", "dattn"), got, ref):
+            a, b = a.float(), b.float()
+            err = float((a - b).abs().max())
+            rel = err / max(float(b.abs().max()), 1e-30)
+            passed = bool(torch.isfinite(a).all()) and rel <= c["tol"][out]
+            ok &= passed
+            row = dict(name="deformable_sample_backward", output=out, dtype=c["dtype"],
+                       max_abs_err=err, max_rel_err=rel, rel_tol=c["tol"][out], passed=passed,
+                       ms=kms, plain_ms=pms, library_ms=None, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=c["bytes"], ops=c["ops"])
+            print("kernel_check " + json.dumps(row))
+            bwd_rows[(out, c["dtype"])] = row
+        del got, ref
+    if not ok:
+        return _fail("the backward kernel disagrees with its plain version")
+    feat, depth, seg_i, fidx, n_vox, _ = lift_inputs(dev, TRAIN_B)
+    feat = feat.bfloat16()
+    g_bev = torch.randn(TRAIN_B, n_vox, 128, device=dev, dtype=torch.bfloat16)
+    lsb_ms = time_ms(lambda: ls.fused_lift_splat_backward(feat, depth, seg_i, fidx, g_bev),
+                     reps=10)
+    print(f"lift-splat backward (PyTorch gather + index_add_), B={TRAIN_B} bf16: {lsb_ms:.3f} ms")
+    del feat, depth, seg_i, fidx, g_bev
+
     # ---- 3. the flagship eval forward at full width, B=6, bfloat16
     cfg = Config(model=ModelConfig(family="vovnet_transformer", vovnet_type="vovnet39",
                                    lss_version="v2", compute_dtype="bfloat16"))
@@ -325,6 +533,7 @@ def main() -> int:
     perturb(model, seed=1)
     inputs = [torch.from_numpy(a).to(dev) for a in fake_inputs(B)]
     wrappers = {"deformable_sample": ds.deformable_sample_combine_xy,
+                "deformable_sample_backward": ds.deformable_sample_combine_xy_backward,
                 "lift_splat": ls.fused_lift_splat, "ffn_ln": ffn.fused_ffn_ln,
                 "seg_head": sh.fused_seg_head}
     torch.cuda.reset_peak_memory_stats()
@@ -394,11 +603,136 @@ def main() -> int:
         if not diff <= atol:
             return _fail(f"GPU and CPU forwards disagree on {name}")
 
+    del gpu_model, cpu_model, out_cpu, out_gpu
+
+    # ---- 5. the flagship train step at full width, train-v2, B=8, bfloat16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model, opt, sched = train_setup(dev, "bfloat16")
+        batch = train_batch(dev, TRAIN_B, seed=5)
+        for f in wrappers.values():
+            f.launches = 0
+        metrics = [train_step(model, opt, sched, batch, 0)]
+        torch.cuda.synchronize()
+        train_launches = {name: f.launches for name, f in wrappers.items()}
+        expected = {name: k[3] for name, k in KERNELS.items()}
+        print(f"train step launches: {train_launches}")
+        if train_launches != expected:
+            return _fail(f"train launch counts {train_launches}, expected {expected}")
+        for step in range(1, 5):
+            metrics.append(train_step(model, opt, sched, batch, step))
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        print(f"train B={TRAIN_B} bf16, 5 steps on one batch: loss {losses}, grad_norm {norms}, "
+              f"lr now {[g['lr'] for g in opt.param_groups]}")
+        if not all(math.isfinite(x) for x in losses + norms):
+            return _fail("non-finite loss or grad_norm in the train step")
+        if not abs(losses[-1] - losses[0]) > 1e-3:
+            return _fail(f"the loss did not move in 5 steps: {losses}")
+        step = 5
+        for _ in range(3):
+            train_step(model, opt, sched, batch, step)
+            step += 1
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            train_step(model, opt, sched, batch, step)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            step += 1
+        times.sort()
+        step_ms = times[len(times) // 2]
+        split = split_step_ms(model, opt, sched, batch, step)
+        step += 5
+        busy_ms, top = device_profile(lambda: train_step(model, opt, sched, batch, step), top=15)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    except torch.cuda.OutOfMemoryError:
+        return _fail(f"the B={TRAIN_B} train step does not fit on the card: peak "
+                     f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB before the failure")
+    print(f"train step B={TRAIN_B} bf16: {step_ms:.3f} ms median of 10 "
+          f"({times[0]:.3f}-{times[-1]:.3f}), {TRAIN_B / step_ms * 1e3:.2f} samples/s")
+    print(f"train step split (ms, CUDA events, median of 5): {json.dumps(split)}")
+    print(f"profiled train step: device busy {busy_ms:.3f} ms, idle share of the timed step "
+          f"{1 - busy_ms / step_ms:.3f}")
+    for name, ms, count in top:
+        print(f"  {ms:9.3f} ms {count:4d}x {name}")
+    print(f"peak device memory in phase 5: {peak:.2f} GB")
+    del model, opt, sched, batch, metrics
+
+    # ---- 6. one float32 train step at B=1, dropout off: the card against the
+    # CPU; and, as the yardstick of the gradient tolerances, the card against
+    # itself from the same weights each moved by 1e-7 of its tensor's mean |value|
+    cpu_model, cpu_opt, cpu_sched = train_setup("cpu", "float32")
+    gpu_model, gpu_opt, gpu_sched = train_setup(dev, "float32")
+    ctl_model, ctl_opt, ctl_sched = train_setup(dev, "float32")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    ctl_model.load_state_dict(cpu_model.state_dict())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in ctl_model.parameters():
+            p.add_(1e-7 * p.abs().mean() * torch.randn(p.shape, generator=gen).to(dev))
+    cpu_batch = train_batch("cpu", 1, seed=3)
+    gpu_batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    m_cpu = train_step(train_without_dropout(cpu_model), cpu_opt, cpu_sched, cpu_batch, 0)
+    m_gpu = train_step(train_without_dropout(gpu_model), gpu_opt, gpu_sched, gpu_batch, 0)
+    train_step(train_without_dropout(ctl_model), ctl_opt, ctl_sched, gpu_batch, 0)
+    # ten times the differences measured (7.4e-7 and 1.5e-4) or more
+    for k, rtol in (("loss", 1e-5), ("grad_norm", 2e-3)):
+        a, b = float(m_gpu[k]), float(m_cpu[k])
+        print(f"gpu vs cpu f32 train {k}: {a:.6f} vs {b:.6f}, rel diff {abs(a - b) / abs(b):.3e} "
+              f"(rtol {rtol})")
+        if not abs(a - b) <= rtol * abs(b):
+            return _fail(f"GPU and CPU train steps disagree on {k}")
+    # the leaves upstream of both kernels, which a cut-off autograd would zero
+    upstream = [n for n, _ in cpu_model.named_parameters()
+                if n.split(".")[0] in ("cam_encode", "depth_net")
+                or n in ("backbone.backbone.stem.0.conv.weight",
+                         *(f"bev_encoder.transformer.encoder.self_attn.{m}.weight"
+                           for m in ("sampling_offsets", "attention_weights", "value_proj")))]
+    vs_cpu = grad_diffs(gpu_model, cpu_model, upstream)
+    control = grad_diffs(ctl_model, gpu_model, upstream)
+    top = max(d[2] for d in vs_cpu.values())
+    # tol -> worst [max metric card vs CPU, control; norm metric card vs CPU, control]
+    worst = {GRAD_TOL: [0.0] * 4, GRAD_TOL_LINEAR: [0.0] * 4}
+    bad = []
+    for n in upstream:
+        (rel, nrel, scale), (crel, cnrel, _) = vs_cpu[n], control[n]
+        if scale <= 1e-4 * top:
+            # zero in exact arithmetic (a conv bias before a train-mode batch
+            # norm): round-off on both sides, and nothing more on the card
+            gmax = float(dict(gpu_model.named_parameters())[n].grad.abs().max())
+            print(f"gpu vs cpu f32 grad {n}: zero up to round-off, max |cpu| {scale:.3e}, "
+                  f"max |gpu| {gmax:.3e}")
+            if not gmax <= 1e-3 * top:
+                bad.append(n)
+            continue
+        tol = GRAD_TOL_LINEAR if n.startswith("cam_encode") or ".value_proj." in n else GRAD_TOL
+        print(f"gpu vs cpu f32 grad {n}: max |cpu| {scale:.3e}, max diff / max |cpu| {rel:.3e} "
+              f"(tol {tol}), norm of diff / norm {nrel:.3e} (tol {GRAD_NORM_TOL}); moved card "
+              f"vs card {crel:.3e}, {cnrel:.3e}")
+        worst[tol] = [max(w, x) for w, x in zip(worst[tol], (rel, crel, nrel, cnrel))]
+        if not (rel <= tol and nrel <= GRAD_NORM_TOL):
+            bad.append(n)
+    for tol, (w_cpu, w_ctl, wn_cpu, wn_ctl) in worst.items():
+        print(f"gradients upstream of the kernels under tol {tol}: worst max diff / max |grad|, "
+              f"card vs CPU {w_cpu:.3e}, card vs card moved by 1e-7 {w_ctl:.3e}; worst norm of "
+              f"diff / norm (tol {GRAD_NORM_TOL}), {wn_cpu:.3e} and {wn_ctl:.3e}")
+    if bad:
+        return _fail(f"GPU and CPU gradients disagree on {bad}")
+
     kernels = []
-    for name, (src, replaces, _) in KERNELS.items():
-        row = rows[(name, "bfloat16")]
+    for name, (src, replaces, n_eval, _) in KERNELS.items():
+        if name == "deformable_sample_backward":
+            outs = [bwd_rows[(o, "bfloat16")] for o in ("dv", "dlx", "dly", "dattn")]
+            row = dict(outs[0], max_abs_err=max(r["max_abs_err"] for r in outs))
+        else:
+            row = rows[(name, "bfloat16")]
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces, launches=launches[name],
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name] if n_eval else train_launches[name],
+            launches_eval_forward=launches[name], launches_train_step=train_launches[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))

@@ -1,8 +1,8 @@
 """Configuration of the PyTorch port (mirrors `lss2_multimodal_nu_tpu/config.py`).
 
-Same defaults as the JAX package's `GridConfig`, `AugConfig` and
-`ModelConfig`; the TPU-only knobs (`dropout_rng_impl`, `MeshConfig`) are left
-out. Two fields are new to the port: `compute_dtype` names a torch dtype, and
+Same defaults as the JAX package's `GridConfig`, `AugConfig`, `ModelConfig`
+and `TrainConfig`; the TPU-only knobs (`dropout_rng_impl`, `MeshConfig`) are
+left out. Two fields are new to the port: `compute_dtype` names a torch dtype, and
 `ln_eps` is the eps of every LayerNorm of the model.
 """
 from __future__ import annotations
@@ -96,7 +96,27 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization settings (the JAX package's `TrainConfig`, without the
+    TPU-only `dropout_rng_impl` and the logging knobs `log_every` and
+    `watch_gradients`)."""
+
+    batch_size: int = 6
+    lr: float = 1e-4
+    weight_decay: float = 1e-8
+    max_grad_norm: float = 5.0
+    num_epochs: int = 50
+    # layer-wise lr + warmup-cosine, stepped per batch
+    backbone_lr_mult: float = 0.1
+    warmup_epochs: int = 5
+    min_lr: float = 1e-6
+    use_schedule: bool = False
+    seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     grid: GridConfig = GridConfig()
     aug: AugConfig = AugConfig()
     model: ModelConfig = ModelConfig()
+    train: TrainConfig = TrainConfig()

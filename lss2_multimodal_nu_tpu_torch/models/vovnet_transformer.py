@@ -1,12 +1,15 @@
 """VoVNet + LSS v1/v2 + lightweight BEV transformer + per-camera reasoning,
-the flagship model, eval forward (counterpart of the JAX package's
+the flagship model (counterpart of the JAX package's
 `models/vovnet_transformer.py`).
 
 BEV branch: VoVNet c3/c4 -> depth net -> CamEncodeV2 -> fused lift-splat
 (kernel 3) -> BEVEncoderTransformer (deformable sampling, kernel 1; FFN/LN
 tail, kernel 4; seg head, kernel 5). TXT branch: AdaptiveFeaturePyramid(c3)
 -> SceneUnder -> global pool -> camera attention (V2/V3) -> BEV-camera
-fusion (V3) -> UnifiedPredictor.
+fusion (V3) -> UnifiedPredictor. `model.train()` switches every module to
+its training path, the JAX package's `train=True`: batch norm on batch
+statistics, dropout, and the FFN tail and seg head op by op instead of
+kernels 4 and 5; the sampling's backward is kernel 2.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""BEV encoder and the TXT-branch heads (eval), counterparts of the JAX
-package's `nn/fusion.py`. Key names follow the original model: the seg head
-is one flat `seg_head` Sequential (indices 0/1/3/4/6), attention modules are
-`nn.MultiheadAttention` with a packed `in_proj`."""
+"""BEV encoder and the TXT-branch heads, counterparts of the JAX package's
+`nn/fusion.py`. Key names follow the original model: the seg head is one
+flat `seg_head` Sequential (indices 0/1/3/4/6), attention modules are
+`nn.MultiheadAttention` with a packed `in_proj`. Dropout is active while a
+module is training: the Dropout modules and each attention's `dropout`."""
 from __future__ import annotations
 
 import torch
@@ -9,12 +10,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.seg_head import fold_conv_bn, fused_seg_head
-from .layers import ConvBNReLU, conv2d, layer_norm, linear
+from .layers import ConvBNReLU, conv2d, conv_bn, layer_norm, linear
 from .transformer import LightweightBEVTransformer
 
 
 def multi_head_attention(q, k, v, m: nn.MultiheadAttention):
-    """Batch-first attention with m's packed projections, in q's dtype."""
+    """Batch-first attention with m's packed projections, in q's dtype;
+    m's dropout on the attention weights while m is training."""
     b, nq, c = q.shape
     nk = k.shape[1]
     nh = m.num_heads
@@ -25,13 +27,14 @@ def multi_head_attention(q, k, v, m: nn.MultiheadAttention):
     kh = F.linear(k, wk, bk).view(b, nk, nh, dh)
     vh = F.linear(v, wv, bv).view(b, nk, nh, dh)
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / (dh ** 0.5)
-    attn = torch.softmax(logits, dim=-1)
+    attn = F.dropout(torch.softmax(logits, dim=-1), m.dropout, m.training)
     out = torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(b, nq, c)
     return linear(out, m.out_proj)
 
 
 class BEVEncoderTransformer(nn.Module):
-    """Compress Z*C -> 256, transformer refine, 3-conv seg head (kernel 5).
+    """Compress Z*C -> 256, transformer refine, 3-conv seg head (kernel 5 in
+    eval; conv -> train BN -> ReLU twice, then the 1x1 conv, in training).
     Returns (seg logits (B, out, X, Y), refined features (B, 256, X, Y))."""
 
     def __init__(self, cin: int = 128, out_features: int = 4, ln_eps: float = 1e-6):
@@ -59,8 +62,12 @@ class BEVEncoderTransformer(nn.Module):
         x = self.compress(x)
         b, _, h, w = x.shape
         tokens = self.transformer(x)  # (B, h*w, 256)
-        seg = fused_seg_head(tokens, *self.folded_seg_head(), h, w).to(x.dtype)
         refined = tokens.view(b, h, w, -1).permute(0, 3, 1, 2)
+        if self.training:
+            s = self.seg_head
+            y = conv_bn(conv_bn(refined, s[0], s[1], relu=True), s[3], s[4], relu=True)
+            return conv_bn(y, s[6]), refined
+        seg = fused_seg_head(tokens, *self.folded_seg_head(), h, w).to(x.dtype)
         return seg, refined
 
 
@@ -93,7 +100,7 @@ class LightweightCameraTransformer(nn.Module):
     def forward(self, x, camera_ids):
         x = x + self.cam_embed(camera_ids).to(x.dtype)
         x = layer_norm(x + multi_head_attention(x, x, x, self.self_attn), self.norm1)
-        y = linear(F.gelu(linear(x, self.ffn[0])), self.ffn[3])
+        y = linear(self.ffn[2](F.gelu(linear(x, self.ffn[0]))), self.ffn[3])
         return layer_norm(x + y, self.norm2)
 
 
@@ -130,6 +137,6 @@ class UnifiedPredictor(nn.Module):
         w = torch.softmax(self.camera_weights.to(camera_features.dtype), dim=0).view(1, n, 1)
         x = (camera_features * w).sum(dim=1)
         e = self.encoder
-        x = F.gelu(layer_norm(linear(x, e[0]), e[1]))
+        x = e[3](F.gelu(layer_norm(linear(x, e[0]), e[1])))
         x = F.gelu(layer_norm(linear(x, e[4]), e[5]))
         return linear(x, self.action_head), linear(x, self.desc_head)

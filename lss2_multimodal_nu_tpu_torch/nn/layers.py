@@ -1,8 +1,12 @@
-"""Shared eval-mode building blocks (NCHW).
+"""Shared building blocks (NCHW).
 
 Parameters stay float32 and are cast to the activation's dtype where they
-are used, as the JAX package does (`nn/layers.py`). Batch norm runs in eval
-mode, folded into the preceding conv with the running statistics.
+are used, as the JAX package does (`nn/layers.py`). In eval, batch norm is
+folded into the preceding conv with the running statistics. In training
+(`bn.training`) it normalises with the batch statistics, taken in float32,
+and updates the running statistics with torch's momentum 0.1 (flax's 0.9)
+and torch's unbiased variance (flax keeps the biased one; ROADMAP.md
+fault e).
 """
 from __future__ import annotations
 
@@ -15,8 +19,16 @@ from torch import nn
 
 def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = None,
             relu: bool = False) -> torch.Tensor:
-    """conv (+ eval batch norm folded into its weights) (+ ReLU) in x's dtype."""
+    """conv (+ batch norm) (+ ReLU) in x's dtype. Eval batch norm is folded
+    into the conv's weights; train batch norm runs after the conv."""
     w, b = conv.weight, conv.bias
+    if bn is not None and bn.training:
+        y = F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
+                     conv.stride, conv.padding, conv.dilation, conv.groups)
+        bn.num_batches_tracked.add_(1)
+        y = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                         training=True, momentum=bn.momentum, eps=bn.eps).to(x.dtype)
+        return F.relu(y) if relu else y
     if bn is not None:
         g = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
         shift = bn.bias - bn.running_mean * g

@@ -1,4 +1,4 @@
-"""ASPP and SceneUnder (eval, NCHW), counterparts of the JAX package's
+"""ASPP and SceneUnder (NCHW), counterparts of the JAX package's
 `nn/lss_modules.py::{ASPP, SceneUnder}` with torchvision's DeepLab key names
 (`convs.{0..4}`, `project`)."""
 from __future__ import annotations
@@ -24,8 +24,8 @@ class ASPPPooling(nn.Sequential):
 
 
 class ASPP(nn.Module):
-    """1x1 + three dilated 3x3 + image pooling, projected by a 1x1 conv
-    (its dropout 0.5 is a no-op in eval)."""
+    """1x1 + three dilated 3x3 + image pooling, projected by a 1x1 conv,
+    then dropout 0.5 (a no-op in eval)."""
 
     def __init__(self, cin: int, atrous_rates: Sequence[int], features: int = 256):
         super().__init__()
@@ -40,7 +40,7 @@ class ASPP(nn.Module):
 
     def forward(self, x):
         y = torch.cat([m(x) for m in self.convs], dim=1)
-        return conv_bn(y, self.project[0], self.project[1], relu=True)
+        return self.project[3](conv_bn(y, self.project[0], self.project[1], relu=True))
 
 
 class SceneUnder(nn.Sequential):

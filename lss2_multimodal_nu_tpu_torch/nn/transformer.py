@@ -1,10 +1,10 @@
-"""Lightweight BEV transformer with deformable attention (eval).
+"""Lightweight BEV transformer with deformable attention.
 
 Counterpart of `nn/transformer.py` of the JAX package. Tokens are (B, N, C)
 with N = H*W, token h*W + w. The sampling runs through
-`ops.deformable_sampling` (kernel 1) and the post-attention tail through
-`ops.ffn.fused_ffn_ln` (kernel 4). `output_proj` is a plain Linear on the
-folded sampling output.
+`ops.deformable_sampling` (kernel 1, and kernel 2 for its backward) and, in
+eval, the post-attention tail through `ops.ffn.fused_ffn_ln` (kernel 4).
+`output_proj` is a plain Linear on the folded sampling output.
 """
 from __future__ import annotations
 
@@ -12,11 +12,12 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.deformable_sampling import deformable_sample_combine_xy
 from ..ops.ffn import fused_ffn_ln
-from .layers import linear
+from .layers import layer_norm, linear
 
 
 def sine_position_embedding(h: int, w: int, num_pos_feats: int = 128,
@@ -100,19 +101,27 @@ class DeformableAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Deformable self-attention + GELU FFN, post-norm; eval forward."""
+    """Deformable self-attention + GELU FFN, post-norm. Eval runs the tail
+    through the fused kernel; training runs it op by op with dropout."""
 
     def __init__(self, d_model: int = 256, n_heads: int = 8, dim_feedforward: int = 1024,
-                 ln_eps: float = 1e-6):
+                 ln_eps: float = 1e-6, dropout: float = 0.1):
         super().__init__()
         self.self_attn = DeformableAttention(d_model, n_heads)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=ln_eps)
         self.norm2 = nn.LayerNorm(d_model, eps=ln_eps)
+        self.dropout = nn.Dropout(dropout)
+        self.dropout1 = nn.Dropout(dropout)
+        self.dropout2 = nn.Dropout(dropout)
 
     def forward(self, src, pos, reference_points):
-        u = src + self.self_attn(src + pos, src, reference_points)
+        u = src + self.dropout1(self.self_attn(src + pos, src, reference_points))
+        if self.training:
+            s = layer_norm(u, self.norm1)
+            y = self.dropout(F.gelu(linear(s, self.linear1)))  # exact erf
+            return layer_norm(s + self.dropout2(linear(y, self.linear2)), self.norm2)
         return fused_ffn_ln(
             u,
             self.linear1.weight.t(), self.linear1.bias,

@@ -120,6 +120,17 @@ def same_device(ref, *tensors) -> None:
             raise ValueError(f"tensor on {t.device}, expected {ref.device}")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need the gradient of an eval-only kernel's
+    output: the kernel writes through raw pointers, so its result would carry
+    no gradient and every parameter upstream would silently get none."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"CUDA kernel {name} is eval-only and has no backward; "
+                           "run the module in training mode or under torch.no_grad()")
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

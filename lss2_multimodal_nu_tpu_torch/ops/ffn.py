@@ -3,7 +3,10 @@
 Counterpart of `ops/ffn_pallas.py::fused_ffn_ln` of the JAX package, with the
 same arguments: weights in the (in, out) layout, w1 (C, F) and w2 (F, C). The
 kernel (`csrc/ffn_ln.cu`) replaces the TPU kernel `_kernel` of
-`ffn_pallas.py`; its source says what bounds it on the H100.
+`ffn_pallas.py`; its source says what bounds it on the H100. The kernel has
+no backward, as the TPU kernel has none: training runs the tail op by op
+(`nn/transformer.py`), and the wrapper refuses a CUDA call that autograd
+would have to differentiate.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ def fused_ffn_ln(u, w1, b1, w2, b2, scale1, bias1, scale2, bias2,
     if u.device.type == "cpu":
         return fused_ffn_ln_plain(u, w1, b1, w2, b2, scale1, bias1, scale2, bias2,
                                   eps, compute_dtype)
+    _build.refuse_grad("ffn_ln", u, w1, b1, w2, b2, scale1, bias1, scale2, bias2)
     if u.device.type != "cuda" or u.dtype not in _SYMBOL or u.dtype != compute_dtype:
         raise ValueError(f"no FFN kernel for {u.dtype} (compute {compute_dtype}) on {u.device}")
     b, n, c = u.shape

@@ -1,9 +1,12 @@
-"""Fused lift + splat (voxel pooling) and its CUDA kernel.
+"""Fused lift + splat (voxel pooling), its CUDA kernel and its gradient.
 
 Counterpart of `ops/lift_splat.py::lift_splat` (fused path) and
 `ops/lift_splat_pallas.py::fused_lift_splat` of the JAX package. The kernel
 (`csrc/lift_splat.cu`) replaces the TPU kernel `_kernel` of
-`lift_splat_pallas.py`; its source says what bounds it on the H100.
+`lift_splat_pallas.py`; its source says what bounds it on the H100. The
+backward is the math of the JAX package's `_fused_bwd`, which is XLA there
+and PyTorch here: gather the cotangent rows, a dot with the feature rows
+for the depth weights, an `index_add_` in float32 for the features.
 """
 from __future__ import annotations
 
@@ -33,11 +36,9 @@ def fused_lift_splat_plain(feat, depth, seg, fidx, n_voxels: int) -> torch.Tenso
 _SYMBOL = {torch.float32: "lift_splat_f32", torch.bfloat16: "lift_splat_bf16"}
 
 
-def fused_lift_splat(feat, depth, seg, fidx, n_voxels: int) -> torch.Tensor:
-    """(B, n_voxels, C): bev[b, seg[p]] += depth[p] * feat[b, fidx[p]].
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
-    which sums in float32 with atomics and casts to feat's dtype."""
+def _forward(feat, depth, seg, fidx, n_voxels: int) -> torch.Tensor:
+    """The forward on feat's device: the plain version on the CPU, else the
+    kernel, which sums in float32 with atomics and casts to feat's dtype."""
     if feat.device.type == "cpu":
         return fused_lift_splat_plain(feat, depth, seg, fidx, n_voxels)
     if feat.device.type != "cuda" or feat.dtype not in _SYMBOL:
@@ -60,6 +61,44 @@ def fused_lift_splat(feat, depth, seg, fidx, n_voxels: int) -> torch.Tensor:
     fused_lift_splat.launches += 1
     _build.check("lift_splat", code)
     return out.to(feat.dtype)
+
+
+def fused_lift_splat_backward(feat, depth, seg, fidx, g):
+    """(dfeat, ddepth) for the cotangent g (B, n_voxels, C) of the output, in
+    the dtypes of (feat, depth): g_rows = g[b, seg[p]]; ddepth[p] =
+    <g_rows[p], feat[b, fidx[p]]>; dfeat[b, fidx[p]] += depth[p] * g_rows[p],
+    summed in float32. seg and fidx get no gradient."""
+    b, r, c = feat.shape
+    g_rows = torch.gather(g.float(), 1, seg.long()[..., None].expand(-1, -1, c))
+    feat_rows = torch.gather(feat.float(), 1, fidx.long()[..., None].expand(-1, -1, c))
+    ddepth = (g_rows * feat_rows).sum(-1).to(depth.dtype)
+    offs = (torch.arange(b, device=feat.device) * r)[:, None]
+    dfeat = torch.zeros(b * r, c, dtype=torch.float32, device=feat.device)
+    dfeat.index_add_(0, (fidx.long() + offs).reshape(-1),
+                     (depth.float()[..., None] * g_rows).reshape(-1, c))
+    return dfeat.view(b, r, c).to(feat.dtype), ddepth
+
+
+class _FusedLiftSplat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, depth, seg, fidx, n_voxels):
+        ctx.save_for_backward(feat, depth, seg, fidx)
+        return _forward(feat, depth, seg, fidx, n_voxels)
+
+    @staticmethod
+    def backward(ctx, g):
+        dfeat, ddepth = fused_lift_splat_backward(*ctx.saved_tensors, g)
+        return dfeat, ddepth, None, None, None
+
+
+def fused_lift_splat(feat, depth, seg, fidx, n_voxels: int) -> torch.Tensor:
+    """(B, n_voxels, C): bev[b, seg[p]] += depth[p] * feat[b, fidx[p]],
+    differentiable in feat and depth.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    which sums in float32 with atomics and casts to feat's dtype. The
+    backward is `fused_lift_splat_backward` on either device."""
+    return _FusedLiftSplat.apply(feat, depth, seg, fidx, n_voxels)
 
 
 fused_lift_splat.launches = 0

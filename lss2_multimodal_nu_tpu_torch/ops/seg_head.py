@@ -5,7 +5,9 @@ the JAX package, with the same arguments: kernels in HWIO, w0 (3, 3, 256,
 128), w1 (3, 3, 128, 64), w2 (64, out). The output is NCHW (B, out, h, w)
 float32. The kernels (`csrc/seg_head.cu`, two launches) replace the TPU
 kernel `_kernel` of `seg_head_pallas.py`; the source says what bounds them
-on the H100 and why there are two.
+on the H100 and why there are two. They have no backward, as the TPU kernel
+has none: training runs the seg head op by op (`nn/fusion.py`), and the
+wrapper refuses a CUDA call that autograd would have to differentiate.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ def fused_seg_head(x, w0, b0, w1, b1, w2, b2, h: int, w: int) -> torch.Tensor:
     launches the two kernels (x float32 or bfloat16)."""
     if x.device.type == "cpu":
         return fused_seg_head_plain(x, w0, b0, w1, b1, w2, b2, h, w)
+    _build.refuse_grad("seg_head", x, w0, b0, w1, b1, w2, b2)
     if x.device.type != "cuda" or x.dtype not in _SYMBOL:
         raise ValueError(f"no seg-head kernel for {x.dtype} on {x.device}")
     b, hw, cin = x.shape

@@ -1,8 +1,10 @@
 """Each CUDA kernel's plain PyTorch version against the JAX package's Pallas
-kernel, run in the Pallas interpreter as the JAX tests run it on the CPU.
+kernel, run in the Pallas interpreter as the JAX tests run it on the CPU, and
+the gradients of the autograd Functions around the kernels.
 
 The wrappers take the plain version for a CPU tensor; for any other device
-that is not a CUDA card they raise (no silent fallback)."""
+that is not a CUDA card they raise (no silent fallback). The eval-only
+kernels refuse a call that autograd would have to differentiate."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,10 +36,12 @@ def _interpret_on_cpu():
         m._INTERPRET = o
 
 
-def _deform_inputs(h, w, bh=4, dh=32, npts=4, seed=11):
+def _deform_inputs(h, w, bh=4, dh=32, npts=4, seed=11, n=None):
+    """v (BH, dh, H*W) channel-major as JAX takes it; n queries (H*W unless
+    given)."""
     rng = np.random.default_rng(seed)
-    n = h * w
-    v = rng.normal(size=(bh, dh, n)).astype(np.float32)  # JAX: channel-major
+    n = h * w if n is None else n
+    v = rng.normal(size=(bh, dh, h * w)).astype(np.float32)
     lx = rng.uniform(0, 1, size=(bh, npts, n)).astype(np.float32)
     ly = rng.uniform(0, 1, size=(bh, npts, n)).astype(np.float32)
     # exact-edge samples: corners outside the map must read zero
@@ -76,6 +80,113 @@ def test_deformable_wrapper_cpu_is_plain_and_bf16():
     assert bf.dtype == torch.bfloat16
     ref = ds.deformable_sample_combine_xy_plain(v_cl.bfloat16().float(), *args)
     assert float((bf.float() - ref).abs().max()) <= BF16_ULP * float(ref.abs().max())
+
+
+def _cl(v):
+    """JAX's channel-major value maps -> the port's channel-last ones."""
+    return T(np.ascontiguousarray(v.transpose(0, 2, 1)))
+
+
+@pytest.mark.parametrize("hw", [(16, 16), (12, 12), (16, 12)])
+def test_deformable_backward_plain_matches_pallas(hw):
+    """Kernel 2's plain version against the JAX kernel backward `_bwd_pallas`
+    in the interpreter (dh=32: the TPU kernel wants 4*dh = 128), with H*W - 3
+    queries (no multiple of 8) and the exact-edge samples. JAX's cotangent is
+    the quadrant-replicated one its forward's contract asks for, and its dv
+    is channel-major. float32; 1e-4 relative as the JAX package's own
+    backward test, for the rc differences that cancel."""
+    h, w = hw
+    n = h * w - 3
+    v, lx, ly, attn = _deform_inputs(h, w, dh=32, n=n, seed=h + w)
+    g = np.random.default_rng(1).normal(size=(4, n, 32)).astype(np.float32)
+    res = tuple(map(jnp.asarray, (v, lx, ly, attn)))
+    want = jax.jit(lambda r, c: dp._bwd_pallas(h, w, r, c))(res, jnp.tile(jnp.asarray(g), (1, 1, 4)))
+    got = ds.deformable_sample_combine_xy_backward_plain(_cl(v), T(lx), T(ly), T(attn), T(g), h, w)
+    want = [np.asarray(want[0]).transpose(0, 2, 1), *map(np.asarray, want[1:])]
+    for name, a, b in zip(("dv", "dlx", "dly", "dattn"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-4 * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("dh", [32, 20])
+def test_deformable_backward_plain_matches_autograd(dh):
+    """The explicit backward against torch.autograd through the plain
+    forward (7x9 map, 60 queries, exact-edge samples); float32, 1e-5
+    relative for the sum order."""
+    h, w = 7, 9
+    v, lx, ly, attn = _deform_inputs(h, w, dh=dh, n=60, seed=dh)
+    g = T(np.random.default_rng(2).normal(size=(4, 60, dh)).astype(np.float32))
+    leaves = [t.requires_grad_() for t in (_cl(v), T(lx), T(ly), T(attn))]
+    (ds.deformable_sample_combine_xy_plain(*leaves, h, w) * g).sum().backward()
+    got = ds.deformable_sample_combine_xy_backward_plain(*[t.detach() for t in leaves], g, h, w)
+    for name, a, leaf in zip(("dv", "dlx", "dly", "dattn"), got, leaves):
+        b = leaf.grad
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+
+
+def test_deformable_function_gradients_on_cpu():
+    """Through `deformable_sample_combine_xy` (the autograd Function) on the
+    CPU: gradients reach v, lx, ly and attn, equal to the explicit backward,
+    in the inputs' dtypes (v bfloat16 here), and no kernel is counted."""
+    h, w = 6, 5
+    v, lx, ly, attn = _deform_inputs(h, w, dh=32, n=30, seed=4)
+    g = T(np.random.default_rng(3).normal(size=(4, 30, 32)).astype(np.float32)).bfloat16()
+    leaves = [_cl(v).bfloat16().requires_grad_()] + [T(a).requires_grad_() for a in (lx, ly, attn)]
+    counters = (ds.deformable_sample_combine_xy, ds.deformable_sample_combine_xy_backward)
+    before = [f.launches for f in counters]
+    out = ds.deformable_sample_combine_xy(*leaves, h, w)
+    assert out.dtype == torch.bfloat16 and out.grad_fn is not None
+    (out.float() * g.float()).sum().backward()
+    want = ds.deformable_sample_combine_xy_backward_plain(*[t.detach() for t in leaves], g, h, w)
+    for leaf, b in zip(leaves, want):
+        assert leaf.grad is not None and leaf.grad.dtype == leaf.dtype
+        torch.testing.assert_close(leaf.grad, b)
+    assert [f.launches for f in counters] == before
+
+
+def test_lift_splat_backward_matches_jax_vjp():
+    """The lift-splat Function's backward against `jax.vjp` of the JAX
+    package's `_fused_lift_splat_op` (Pallas forward in the interpreter, the
+    XLA backward `_fused_bwd`): dfeat and ddepth to 1e-5 (sums of a few
+    float32 terms); seg and fidx get none."""
+    feat, depth, seg, fidx, nv = _splat_inputs(seed=5)
+    g = np.random.default_rng(6).normal(size=(2, nv, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda f, d: jls._fused_lift_splat_op(f, d, jnp.asarray(seg), jnp.asarray(fidx), nv),
+                     jnp.asarray(feat), jnp.asarray(depth))
+    want_feat, want_depth = vjp(jnp.asarray(g))
+    tf, td = T(feat).requires_grad_(), T(depth).requires_grad_()
+    ts_, ti = T(seg), T(fidx)
+    out = ls.fused_lift_splat(tf, td, ts_, ti, nv)
+    (out * T(g)).sum().backward()
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(want_feat), atol=1e-5)
+    np.testing.assert_allclose(td.grad.numpy(), np.asarray(want_depth), atol=1e-5)
+    dfeat, ddepth = ls.fused_lift_splat_backward(tf.detach(), td.detach(), ts_, ti, T(g))
+    torch.testing.assert_close(dfeat, tf.grad)
+    torch.testing.assert_close(ddepth, td.grad)
+
+
+def test_eval_only_kernels_refuse_gradients():
+    """fused_ffn_ln and fused_seg_head write through raw pointers and have no
+    backward, so off the CPU (a meta tensor stands in for a CUDA one) a call
+    that autograd would differentiate raises before any launch, instead of
+    returning a result with no gradient; under no_grad it goes on to the
+    device check."""
+    m = lambda *s: torch.empty(*s, dtype=torch.float32, device="meta")
+    w1 = m(256, 1024).requires_grad_()
+    ffn_args = (m(1, 4, 256), w1, m(1024), m(1024, 256), m(256), m(256), m(256), m(256), m(256))
+    seg_args = (m(1, 16, 256), m(3, 3, 256, 128).requires_grad_(), m(128), m(3, 3, 128, 64),
+                m(64), m(64, 4), m(4), 4, 4)
+    before = (ffn.fused_ffn_ln.launches, sh.fused_seg_head.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ffn.fused_ffn_ln(*ffn_args, compute_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sh.fused_seg_head(*seg_args)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            ffn.fused_ffn_ln(*ffn_args, compute_dtype=torch.float32)
+        with pytest.raises(ValueError):
+            sh.fused_seg_head(*seg_args)
+    assert (ffn.fused_ffn_ln.launches, sh.fused_seg_head.launches) == before
 
 
 def _splat_inputs(seed=0, b=2, r=24, p=300, c=16, n_voxels=256):
@@ -202,11 +313,14 @@ def test_wrappers_raise_off_the_card():
     """A tensor that is neither on the CPU nor on a CUDA card has no plain
     fallback: every wrapper raises before launching anything."""
     m = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt, device="meta")
-    counted = (ds.deformable_sample_combine_xy, ls.fused_lift_splat, ffn.fused_ffn_ln,
-               sh.fused_seg_head)
+    counted = (ds.deformable_sample_combine_xy, ds.deformable_sample_combine_xy_backward,
+               ls.fused_lift_splat, ffn.fused_ffn_ln, sh.fused_seg_head)
     before = [f.launches for f in counted]
     with pytest.raises(ValueError):
         ds.deformable_sample_combine_xy(m(4, 16, 32), m(4, 2, 16), m(4, 2, 16), m(4, 2, 16), 4, 4)
+    with pytest.raises(ValueError):
+        ds.deformable_sample_combine_xy_backward(m(4, 16, 32), m(4, 2, 16), m(4, 2, 16),
+                                                 m(4, 2, 16), m(4, 16, 32), 4, 4)
     with pytest.raises(ValueError):
         ls.fused_lift_splat(m(1, 4, 8), m(1, 5), m(1, 5, dt=torch.int32),
                             m(1, 5, dt=torch.int32), 8)
