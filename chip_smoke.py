@@ -7,8 +7,8 @@ Phases (any failure exits non-zero):
      CUDA kernels of `lss2_multimodal_nu_tpu_torch/csrc/` with nvcc (timed);
   2. every forward kernel against its plain PyTorch version at the
      flagship's B=6 shapes, in float32 and bfloat16: max errors against the
-     stated tolerances, median kernel / plain / library times over
-     CUDA-event timed runs, and the least time the card could take (bound);
+     stated tolerances, kernel / plain / library times (CUDA events around
+     back-to-back calls), and the least time the card could take (bound);
   2b. the deformable-sampling backward kernel against its plain version at
      the train-v2 shapes (B=8), in float32 and bfloat16, each of its four
      outputs checked; the lift-splat backward (PyTorch ops) timed;
@@ -111,28 +111,32 @@ def perturb(model, seed):
 
 
 def time_ms(fn, reps=20, warmup=3):
-    """Median of `reps` CUDA-event timed calls after `warmup` calls."""
+    """Mean time of `reps` calls made back to back after `warmup` calls: CUDA
+    events around the whole run, so the host's work for one call overlaps
+    the card's work for the one before, as in a forward."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
     for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    times.sort()
-    return times[len(times) // 2]
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+# substrings of the port's own kernel names, as the profiler lists them
+PORT_KERNEL_NAMES = ("deform_sample", "lift_splat", "ffn_ln", "conv3x3")
 
 
 def device_profile(fn, top=12):
     """Device time by kernel name over one call of `fn` under torch.profiler
-    (CUPTI): the busiest kernels and copies and their total busy time, in ms.
-    Ranges that annotate the device timeline (`Optimizer.step#Adam.step`)
-    are not work of their own and are left out."""
+    (CUPTI): the busiest kernels and copies, and every kernel of the port's
+    own, and their total busy time, in ms. Ranges that annotate the device
+    timeline (`Optimizer.step#Adam.step`) are not work of their own and are
+    left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,7 +147,8 @@ def device_profile(fn, top=12):
             and not getattr(e, "is_user_annotation", False)]
     rows = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count) for e in kern),
                   key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:top]
+    shown = [r for i, r in enumerate(rows) if i < top or any(k in r[0] for k in PORT_KERNEL_NAMES)]
+    return sum(r[1] for r in rows), shown
 
 
 def lift_inputs(dev, b, seed=7):
@@ -262,11 +267,21 @@ def kernel_cases(dev):
         ))
         td = tok.to(dt)
         args = (fw_["w1"], fw_["b1"], fw_["w2"], fw_["b2"], fw_["s1"], fw_["o1"], fw_["s2"], fw_["o2"])
+        # the yardstick: the same tail as PyTorch's own ops in the working dtype
+        lw = {k: v.to(dt) for k, v in fw_.items()}
+        lw["w1"], lw["w2"] = lw["w1"].t().contiguous(), lw["w2"].t().contiguous()
+
+        def ffn_library(td=td, lw=lw):
+            F_ = torch.nn.functional
+            s = F_.layer_norm(td, (256,), lw["s1"], lw["o1"], 1e-6)
+            y = F_.linear(F_.gelu(F_.linear(s, lw["w1"], lw["b1"])), lw["w2"], lw["b2"])
+            return F_.layer_norm(s + y, (256,), lw["s2"], lw["o2"], 1e-6)
+
         cases.append(dict(
             name="ffn_ln", dtype=name_dt,
             kernel=lambda td=td, dt=dt: ffn.fused_ffn_ln(td, *args, eps=1e-6, compute_dtype=dt),
             plain=lambda td=td, dt=dt: ffn.fused_ffn_ln_plain(td, *args, eps=1e-6, compute_dtype=dt),
-            library=None,
+            library=ffn_library,
             bytes=2 * B * n * 256 * es + 2 * 256 * 1024 * es,
             ops=4 * B * n * 256 * 1024, op_dtype=name_dt,
             # bf16: LN1 and GELU outputs are rounded to bf16 inside; one flipped

@@ -1,17 +1,15 @@
 // Shared pieces of the port's hand-written kernels: dtype conversion, warp
-// sums, a 256-thread tile product and the C error helper.
+// sums, a 256-thread float tile product and the C error helper.
 //
 // Every kernel has a float and a bfloat16 instantiation. The tile product
-// `TileMMA<T, M, N>` accumulates an M x N float tile from row-major operands
-// in shared memory: with bfloat16 operands it runs on the tensor cores through
-// nvcuda::wmma (16x16x16 fragments, float accumulation); with float operands
-// it is plain FMA on the SIMT cores, so the float path keeps full float32
-// precision (no TF32 rounding).
+// `TileMMA<M, N>` of the float tile kernels accumulates an M x N float tile
+// from row-major operands in shared memory with plain FMA on the SIMT cores,
+// so the float paths keep full float32 precision (no TF32 rounding). The
+// bfloat16 tile kernels run on the tensor cores through wgmma (`hopper.cuh`).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace lss {
@@ -36,11 +34,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int M, int N> struct TileMMA;
-
-// float: each thread owns an (M/16) x (N/16) register block; thread (ty, tx)
-// holds rows ty*RM + i and columns tx + 16*j.
-template <int M, int N> struct TileMMA<float, M, N> {
+// Each thread owns an (M/16) x (N/16) register block; thread (ty, tx) holds
+// rows ty*RM + i and columns tx + 16*j.
+template <int M, int N> struct TileMMA {
   static constexpr int RM = M / 16, RN = N / 16;
   float acc[RM][RN];
 
@@ -84,60 +80,8 @@ template <int M, int N> struct TileMMA<float, M, N> {
   }
 };
 
-// bfloat16: the (M/16) x (N/16) fragments are split evenly over the 8 warps;
-// a warp owns F consecutive fragments of one 16-row band. Shared-memory
-// operands need 32-byte aligned tiles and leading dimensions that are
-// multiples of 8 elements (4 for the float accumulator).
-template <int M, int N> struct TileMMA<__nv_bfloat16, M, N> {
-  static constexpr int TN = N / 16;
-  static constexpr int F = (M / 16) * TN / 8;
-  static_assert((M / 16) * TN % 8 == 0 && F <= TN && TN % F == 0, "tile split");
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[F];
-  int rt, ct0;
-
-  __device__ __forceinline__ TileMMA() {
-    const int f0 = (threadIdx.x / 32) * F;
-    rt = f0 / TN;
-    ct0 = f0 % TN;
-  }
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < F; ++i) nvcuda::wmma::fill_fragment(acc[i], 0.f);
-  }
-
-  __device__ __forceinline__ void mma(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
-                                      int ldb, int K) {
-    using namespace nvcuda;
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + rt * 16 * lda + k, lda);
-#pragma unroll
-      for (int i = 0; i < F; ++i) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + k * ldb + (ct0 + i) * 16, ldb);
-        wmma::mma_sync(acc[i], a, b, acc[i]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* C, int ldc) const {
-#pragma unroll
-    for (int i = 0; i < F; ++i)
-      nvcuda::wmma::store_matrix_sync(C + rt * 16 * ldc + (ct0 + i) * 16, acc[i], ldc,
-                                      nvcuda::wmma::mem_row_major);
-  }
-
-  __device__ __forceinline__ void load(const float* C, int ldc) {
-#pragma unroll
-    for (int i = 0; i < F; ++i)
-      nvcuda::wmma::load_matrix_sync(acc[i], C + rt * 16 * ldc + (ct0 + i) * 16, ldc,
-                                     nvcuda::wmma::mem_row_major);
-  }
-};
-
 // Bytes of `count` elements of T rounded up to 128, so consecutive
-// shared-memory regions stay aligned for wmma.
+// shared-memory regions stay aligned.
 template <typename T> __host__ __device__ constexpr size_t region(size_t count) {
   return (count * sizeof(T) + 127) / 128 * 128;
 }

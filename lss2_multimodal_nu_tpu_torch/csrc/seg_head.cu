@@ -6,56 +6,62 @@
 // seg_head_pallas.py (`fused_seg_head`).
 //
 // Bound on the H100: operations. At the flagship (6 x 200 x 200 pixels) the
-// two 3x3 convs are 177 GFLOP against 123 MB of input. Both convs are
-// implicit GEMMs: a block owns 64 consecutive pixels of one image and all
-// output channels, and for each of the 9 taps and each 32-channel slice it
-// stages the shifted input pixels (zero outside the image, which is the
-// SAME padding, also for the second conv: its halo is zero and not
-// relu(bias)) and the matching weight slice in shared memory, then runs the
-// tile product (tensor cores for bfloat16, FMA for float).
+// two 3x3 convs are 177 GFLOP against 123 MB of input (0.18 ms at the bf16
+// peak). Both convs are implicit GEMMs over 9 taps, zero outside the image
+// (the SAME padding, also for the second conv: its halo is zero and not
+// relu(bias)).
 //
-// This port makes two launches where the TPU kernel keeps the first conv's
-// output on chip: launch 1 writes conv0+ReLU to HBM in the working dtype
-// (123 MB bf16 at the flagship, written once and read back 9 times through
-// L2); launch 2 fuses conv1+ReLU with the 1x1 head and writes float logits
-// as (B, out, H, W). Fusing the two convs with a halo recompute is later
-// work.
+// Two launches where the TPU kernel keeps the first conv's output on chip:
+// launch 1 writes conv0+ReLU to HBM in the working dtype (123 MB in bf16 at
+// the flagship, about 0.07 ms of traffic out and back at HBM rate); launch 2
+// fuses conv1+ReLU with the 1x1 head, in float32 on the accumulator, and
+// writes float logits as (B, out, H, W). Keeping conv0 on chip would
+// recompute it on a halo: 1.41 times its work at 8 x 16 output tiles, 1.27 at
+// 16 x 16, more than the round trip costs.
+//
+// bfloat16 (`bf16k`): tensor cores (wgmma) fed by TMA, each input pixel
+// loaded once per 64-channel slice (see the note there).
+//
+// float: the SIMT design of the first port, kept as the full-float32 parity
+// path: a block owns 64 consecutive pixels and stages the shifted input and
+// the weight slice for each tap through shared memory, with FMA tile products.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int M = 64;   // pixels per block
 constexpr int KC = 32;  // input channels per staged slice
 
-template <typename T, int COUT> struct Layout {
+template <int COUT> struct Layout {
   static constexpr int LDA = KC + 8, LDB = COUT + 8, LDC = COUT + 4;
   static constexpr size_t bytes =
-      lss::region<T>(M * LDA) + lss::region<T>(KC * LDB) + lss::region<float>(M * LDC);
+      lss::region<float>(M * LDA) + lss::region<float>(KC * LDB) + lss::region<float>(M * LDC);
 };
 
-// x (B, H*W, CIN) T, w (9, CIN, COUT) T, bias (COUT) float.
-// HEAD == false: y (B, H*W, COUT) T = relu(conv(x) + bias).
+// x (B, H*W, CIN), w (9, CIN, COUT), bias (COUT), all float.
+// HEAD == false: y (B, H*W, COUT) = relu(conv(x) + bias).
 // HEAD == true:  logits (B, nout, H*W) float = w2^T relu(conv(x) + bias) + b2,
 //                w2 (COUT, nout) float.
-template <typename T, int CIN, int COUT, bool HEAD>
+template <int CIN, int COUT, bool HEAD>
 __global__ void __launch_bounds__(lss::kThreads)
-    conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ w2,
-                   const float* __restrict__ b2, T* __restrict__ y, float* __restrict__ logits,
+                   const float* __restrict__ b2, float* __restrict__ y, float* __restrict__ logits,
                    int h, int wd, int nout) {
-  using L = Layout<T, COUT>;
+  using L = Layout<COUT>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sa = (T*)smem;
-  T* sb = (T*)(smem + lss::region<T>(M * L::LDA));
-  float* sc = (float*)((unsigned char*)sb + lss::region<T>(KC * L::LDB));
+  float* sa = (float*)smem;
+  float* sb = (float*)(smem + lss::region<float>(M * L::LDA));
+  float* sc = (float*)((unsigned char*)sb + lss::region<float>(KC * L::LDB));
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int hw = h * wd;
   const int p0 = blockIdx.x * M;
-  const T* xb = x + (size_t)b * hw * CIN;
+  const float* xb = x + (size_t)b * hw * CIN;
 
-  lss::TileMMA<T, M, COUT> acc;
+  lss::TileMMA<M, COUT> acc;
   acc.zero();
   for (int t = 0; t < 9; ++t) {
     const int dy = t / 3 - 1, dx = t % 3 - 1;
@@ -66,7 +72,7 @@ __global__ void __launch_bounds__(lss::kThreads)
         const int py = p / wd, px = p % wd;
         const int qy = py + dy, qx = px + dx;
         const bool ok = p < hw && qy >= 0 && qy < h && qx >= 0 && qx < wd;
-        sa[i * L::LDA + k] = ok ? xb[((size_t)qy * wd + qx) * CIN + kc + k] : lss::from_f<T>(0.f);
+        sa[i * L::LDA + k] = ok ? xb[((size_t)qy * wd + qx) * CIN + kc + k] : 0.f;
       }
       for (int e = tid; e < KC * COUT; e += lss::kThreads) {
         const int r = e / COUT, c = e % COUT;
@@ -85,7 +91,7 @@ __global__ void __launch_bounds__(lss::kThreads)
       const int i = e / COUT, c = e % COUT;
       const int p = p0 + i;
       if (p < hw)
-        y[((size_t)b * hw + p) * COUT + c] = lss::from_f<T>(fmaxf(sc[i * L::LDC + c] + bias[c], 0.f));
+        y[((size_t)b * hw + p) * COUT + c] = fmaxf(sc[i * L::LDC + c] + bias[c], 0.f);
     }
   } else {
     for (int e = tid; e < M * COUT; e += lss::kThreads) {
@@ -104,33 +110,265 @@ __global__ void __launch_bounds__(lss::kThreads)
   }
 }
 
-template <typename T, int CIN, int COUT, bool HEAD>
+template <int CIN, int COUT, bool HEAD>
 cudaError_t launch_conv(const void* x, const void* w, const void* bias, const void* w2,
                         const void* b2, void* y, void* logits, int b, int h, int wd, int nout,
                         cudaStream_t stream) {
-  constexpr size_t bytes = Layout<T, COUT>::bytes;
-  auto kern = conv3x3_kernel<T, CIN, COUT, HEAD>;
+  constexpr size_t bytes = Layout<COUT>::bytes;
+  auto kern = conv3x3_kernel<CIN, COUT, HEAD>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((h * wd + M - 1) / M, b);
-  kern<<<grid, lss::kThreads, bytes, stream>>>((const T*)x, (const T*)w, (const float*)bias,
-                                               (const float*)w2, (const float*)b2, (T*)y,
+  kern<<<grid, lss::kThreads, bytes, stream>>>((const float*)x, (const float*)w, (const float*)bias,
+                                               (const float*)w2, (const float*)b2, (float*)y,
                                                (float*)logits, h, wd, nout);
   return cudaGetLastError();
 }
 
+// ---- bfloat16: warpgroup products fed by TMA -------------------------------
+//
+// A block of 384 threads owns a 16 x 16 pixel tile of one image. Warpgroups
+// 0 and 1 compute, on output rows 8g..8g+7 each, as two wgmma M-tiles of 64
+// pixels (rows 8g + 4m .. 8g + 4m + 3; warp w of the warpgroup takes row
+// 8g + 4m + w in both). Warpgroup 2 is the producer: one of its threads
+// issues every copy and the warpgroup gives its registers to the other two.
+// The input is walked in slices of 64 channels: the slice's 18 x 18 halo
+// tile arrives once by TMA (a 4-D box over (B, H, W, C) whose out-of-image
+// part the TMA fills with zeros, which is the SAME padding), double-
+// buffered. The 9 taps read shifted windows of it with ldmatrix (a one-pixel
+// shift breaks wgmma's 8-row shared-memory layout, but ldmatrix takes one
+// address per row) into the register A operand. The weight tiles, w^T[tap]
+// (COUT x 64 channels), stream by TMA through a 4-stage ring in wgmma's
+// swizzled B layout. Producer and consumers meet only at the mbarriers of
+// the two rings, and a consumer keeps two items' products in flight. Bias
+// and ReLU run on the accumulator. At the flagship the pair runs at about
+// half the bound; what limits it further is not measured.
+namespace bf16k {
+
+using bf16 = __nv_bfloat16;
+constexpr int T = 16;                       // output tile, T x T pixels
+constexpr int HT = T + 2;                   // halo tile side
+constexpr int HALO = (HT * HT * 128 + 1023) / 1024 * 1024;  // one 64-channel slice
+constexpr int STAGES = 4;
+
+template <int COUT> struct Smem {
+  static constexpr int WT = COUT * 128;  // one (tap, slice) weight tile
+  static constexpr int BARS = 2 * HALO + STAGES * WT;
+  // mbarriers: halo full/empty (2 each), weight full/empty (STAGES each)
+  static constexpr size_t bytes = BARS + (4 + 2 * STAGES) * 8 + 1024;  // + alignment slack
+};
+
+// Arrive at the mbarriers that free item i's weight stage (and, after its
+// last tap, its halo buffer): lane 0 of each consumer warp.
+__device__ __forceinline__ void release(int i, uint32_t halo_empty, uint32_t w_empty) {
+  lss::mbar_arrive(w_empty + 8 * (i % STAGES));
+  if (i % 9 == 8) lss::mbar_arrive(halo_empty + 8 * ((i / 9) % 2));
+}
+
+// Item i of a consumer: wait for its tiles, load the shifted A windows of both
+// M-tiles into a, issue the products into acc, then wait out item i - 1's
+// (whose A registers are a_prev) and release its tiles.
+template <int COUT>
+__device__ __forceinline__ void consume(int i, float (&acc)[2][COUT / 2], uint32_t (&a)[2][4][4],
+                                        uint32_t (&a_prev)[2][4][4], uint32_t halo,
+                                        uint32_t wring, uint32_t halo_full, uint32_t halo_empty,
+                                        uint32_t w_full, uint32_t w_empty, int g, int warp, int px,
+                                        int khalf, int lane) {
+  using namespace lss;
+  const int ks = i / 9, t = i % 9, st = i % STAGES;
+  if (t == 0) mbar_wait(halo_full + 8 * (ks % 2), (ks / 2) & 1);
+  mbar_wait(w_full + 8 * st, (i / STAGES) & 1);
+  const uint32_t hb = halo + (ks % 2) * HALO, wb = wring + st * Smem<COUT>::WT;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    // halo pixel of this lane's row: output row 8g + 4m + w, shifted by the tap
+    const int hp = (8 * g + 4 * m + warp % 4 + t / 3) * HT + px + t % 3;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(a[m][kk], hb + sw128(hp, 2 * kk + khalf));
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m) fence_regs(acc[m]);
+  wgmma_fence();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (COUT == 128) wgmma_rs_n128(acc[m], a[m][kk], desc_sw128(wb + kk * 32));
+      else wgmma_rs_n64(acc[m], a[m][kk], desc_sw128(wb + kk * 32));
+    }
+  wgmma_commit();
+  wgmma_wait<1>();  // item i - 1 is done
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(a_prev[m][kk]);
+  if (i > 0 && lane == 0) release(i - 1, halo_empty, w_empty);
+}
+
+// x (B, H, W, CIN) through tm_x, wt (9 COUT, CIN) through tm_w, bias (COUT) float.
+// HEAD == false: y (B, H, W, COUT) bf16 = relu(conv(x) + bias).
+// HEAD == true:  logits (B, nout, H, W) float = w2^T relu(conv(x) + bias) + b2.
+template <int CIN, int COUT, bool HEAD>
+__global__ void __launch_bounds__(384, 1)
+    conv3x3_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ bias,
+                        const float* __restrict__ w2, const float* __restrict__ b2,
+                        bf16* __restrict__ y, float* __restrict__ logits, int h, int wd,
+                        int nout) {
+  using namespace lss;
+  using L = Smem<COUT>;
+  constexpr int NSLICE = CIN / 64, NITEM = 9 * NSLICE;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t halo = base, wring = base + 2 * HALO;
+  const uint32_t halo_full = base + L::BARS, halo_empty = halo_full + 16,
+                 w_full = halo_empty + 16, w_empty = w_full + 8 * STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = warp / 4;
+  const int b = blockIdx.z, y0 = blockIdx.y * T, x0 = blockIdx.x * T;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) mbar_init(halo_full + 8 * i, 1), mbar_init(halo_empty + 8 * i, 8);
+    for (int i = 0; i < STAGES; ++i) mbar_init(w_full + 8 * i, 1), mbar_init(w_empty + 8 * i, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (g == 2) {
+    // ---- producer. Item i = (channel slice i / 9, tap i % 9): its weight
+    // tile, and with tap 0 the slice's halo tile.
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      for (int i = 0; i < NITEM; ++i) {
+        const int ks = i / 9, t = i % 9;
+        if (t == 0) {
+          const uint32_t full = halo_full + 8 * (ks % 2);
+          if (ks >= 2) mbar_wait(halo_empty + 8 * (ks % 2), ((ks / 2) - 1) & 1);
+          mbar_expect_tx(full, HT * HT * 128);
+          tma_load_4d(halo + (ks % 2) * HALO, &tm_x, full, ks * 64, x0 - 1, y0 - 1, b);
+        }
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(w_empty + 8 * st, ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(w_full + 8 * st, L::WT);
+        tma_load_2d(wring + st * L::WT, &tm_w, w_full + 8 * st, ks * 64, t * COUT);
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<232>();
+    const int px = lane % 16, khalf = lane / 16;
+    float acc[2][COUT / 2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < COUT / 2; ++i) acc[m][i] = 0.f;
+
+    // Two items in flight: item i's products are issued before item i - 1's
+    // are waited out, so their A registers alternate by name.
+    uint32_t a0[2][4][4], a1[2][4][4];
+    for (int i = 0; i < NITEM; i += 2) {
+      consume<COUT>(i, acc, a0, a1, halo, wring, halo_full, halo_empty, w_full, w_empty, g,
+                    warp, px, khalf, lane);
+      if (i + 1 < NITEM)
+        consume<COUT>(i + 1, acc, a1, a0, halo, wring, halo_full, halo_empty, w_full, w_empty, g,
+                      warp, px, khalf, lane);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < 2; ++m) fence_regs(acc[m]);
+    if (lane == 0) release(NITEM - 1, halo_empty, w_empty);
+
+    // Epilogue. Accumulator rows l/4 and l/4 + 8 of this warp are pixels
+    // l/4 and l/4 + 8 of output row 8g + 4m + w; columns 8j + 2(l%4) + {0,1}.
+    const int cq = 2 * (lane % 4);
+    const int ox[2] = {x0 + lane / 4, x0 + lane / 4 + 8};
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int oy = y0 + 8 * g + 4 * m + warp % 4;
+      if constexpr (!HEAD) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (oy >= h || ox[half] >= wd) continue;
+          bf16* dst = y + (((size_t)b * h + oy) * wd + ox[half]) * COUT + cq;
+#pragma unroll
+          for (int j = 0; j < COUT / 8; ++j) {
+            const float v0 = fmaxf(acc[m][4 * j + 2 * half] + bias[8 * j + cq], 0.f);
+            const float v1 = fmaxf(acc[m][4 * j + 2 * half + 1] + bias[8 * j + cq + 1], 0.f);
+            *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(v0, v1);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < COUT / 2; ++i)
+          acc[m][i] = fmaxf(acc[m][i] + bias[8 * (i / 4) + cq + i % 2], 0.f);
+        for (int o = 0; o < nout; ++o) {
+          float s[2] = {0.f, 0.f};
+#pragma unroll
+          for (int i = 0; i < COUT / 2; ++i)
+            s[(i / 2) % 2] = fmaf(acc[m][i], w2[(8 * (i / 4) + cq + i % 2) * nout + o], s[(i / 2) % 2]);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            s[half] += __shfl_xor_sync(0xffffffffu, s[half], 1);
+            s[half] += __shfl_xor_sync(0xffffffffu, s[half], 2);
+            if (lane % 4 == 0 && oy < h && ox[half] < wd)
+              logits[((size_t)b * nout + o) * h * wd + (size_t)oy * wd + ox[half]] = s[half] + b2[o];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int CIN, int COUT, bool HEAD>
+cudaError_t launch_conv_bf16(const void* x, const void* wt, const void* bias, const void* w2,
+                             const void* b2, void* y, void* logits, int b, int h, int wd,
+                             int nout, cudaStream_t stream) {
+  // x as (B, H, W, CIN) in boxes of one 18 x 18 halo tile of 64 channels; wt
+  // as (9 COUT, CIN) in boxes of one (tap, slice) tile
+  const cuuint64_t dx[4] = {CIN, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint32_t bx[4] = {64, HT, HT, 1};
+  const cuuint64_t dw[2] = {CIN, 9 * COUT};
+  const cuuint32_t bw[2] = {64, COUT};
+  CUtensorMap tm_x, tm_w;
+  cudaError_t e = lss::tensor_map(&tm_x, x, 4, dx, bx);
+  if (e == cudaSuccess) e = lss::tensor_map(&tm_w, wt, 2, dw, bw);
+  constexpr size_t bytes = Smem<COUT>::bytes;
+  auto kern = conv3x3_bf16_kernel<CIN, COUT, HEAD>;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((wd + T - 1) / T, (h + T - 1) / T, b);
+  kern<<<grid, 384, bytes, stream>>>(tm_x, tm_w, (const float*)bias, (const float*)w2,
+                                     (const float*)b2, (bf16*)y, (float*)logits, h, wd, nout);
+  return cudaGetLastError();
+}
+
+}  // namespace bf16k
+
 // Two launches: conv0 (256 -> 128) into y0, then conv1 (128 -> 64) + head.
-template <typename T>
-int launch(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
-           const void* w2, const void* b2, void* y0, void* logits, int b, int h, int wd, int nout,
-           void* stream) {
+int launch_f32(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+               const void* w2, const void* b2, void* y0, void* logits, int b, int h, int wd,
+               int nout, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = launch_conv<T, 256, 128, false>(x, w0, b0, nullptr, nullptr, y0, nullptr, b, h,
-                                                  wd, 0, s);
+  cudaError_t e = launch_conv<256, 128, false>(x, w0, b0, nullptr, nullptr, y0, nullptr,
+                                                      b, h, wd, 0, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_conv<T, 128, 64, true>(y0, w1, b1, w2, b2, nullptr, logits, b, h, wd, nout,
-                                            s);
+  return (int)launch_conv<128, 64, true>(y0, w1, b1, w2, b2, nullptr, logits, b, h, wd,
+                                                nout, s);
+}
+
+// The same two launches; w0t (9, 128, 256) and w1t (9, 64, 128) are the
+// kernels with the channel axes swapped (output channel first).
+int launch_bf16(const void* x, const void* w0t, const void* b0, const void* w1t, const void* b1,
+                const void* w2, const void* b2, void* y0, void* logits, int b, int h, int wd,
+                int nout, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = bf16k::launch_conv_bf16<256, 128, false>(x, w0t, b0, nullptr, nullptr, y0,
+                                                           nullptr, b, h, wd, 0, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)bf16k::launch_conv_bf16<128, 64, true>(y0, w1t, b1, w2, b2, nullptr, logits, b, h,
+                                                     wd, nout, s);
 }
 
 }  // namespace
@@ -138,11 +376,11 @@ int launch(const void* x, const void* w0, const void* b0, const void* w1, const 
 extern "C" int seg_head_f32(const void* x, const void* w0, const void* b0, const void* w1,
                             const void* b1, const void* w2, const void* b2, void* y0,
                             void* logits, int b, int h, int w, int nout, void* stream) {
-  return launch<float>(x, w0, b0, w1, b1, w2, b2, y0, logits, b, h, w, nout, stream);
+  return launch_f32(x, w0, b0, w1, b1, w2, b2, y0, logits, b, h, w, nout, stream);
 }
 
 extern "C" int seg_head_bf16(const void* x, const void* w0, const void* b0, const void* w1,
                              const void* b1, const void* w2, const void* b2, void* y0,
                              void* logits, int b, int h, int w, int nout, void* stream) {
-  return launch<__nv_bfloat16>(x, w0, b0, w1, b1, w2, b2, y0, logits, b, h, w, nout, stream);
+  return launch_bf16(x, w0, b0, w1, b1, w2, b2, y0, logits, b, h, w, nout, stream);
 }

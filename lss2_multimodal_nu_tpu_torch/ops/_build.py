@@ -10,6 +10,11 @@ started together, into one shared library each under `<repo>/build/kernels`
 Each library exports plain C entry points that take device pointers and the
 stream as `void*` and return the `cudaError_t` of the launch. `check` turns a
 non-zero code into an exception. Nothing here runs at import time.
+
+The libraries link only the CUDA runtime, not libcuda: the FFN kernel's TMA
+tensor maps are encoded with `cuTensorMapEncodeTiled`, which the library
+obtains from the driver through `cudaGetDriverEntryPoint` at its first
+launch. No CUTLASS header is used.
 """
 from __future__ import annotations
 

@@ -3,7 +3,9 @@
 Counterpart of `ops/ffn_pallas.py::fused_ffn_ln` of the JAX package, with the
 same arguments: weights in the (in, out) layout, w1 (C, F) and w2 (F, C). The
 kernel (`csrc/ffn_ln.cu`) replaces the TPU kernel `_kernel` of
-`ffn_pallas.py`; its source says what bounds it on the H100. The kernel has
+`ffn_pallas.py`; its source says what bounds it on the H100. Its bfloat16
+instantiation runs on the tensor cores and takes the weights transposed
+(K-major), which the wrapper prepares. The kernel has
 no backward, as the TPU kernel has none: training runs the tail op by op
 (`nn/transformer.py`), and the wrapper refuses a CUDA call that autograd
 would have to differentiate.
@@ -62,6 +64,8 @@ def fused_ffn_ln(u, w1, b1, w2, b2, scale1, bias1, scale2, bias2,
         raise ValueError("FFN biases and norm parameters must have F and C entries")
     _build.same_device(u, w1, b1, w2, b2, scale1, bias1, scale2, bias2)
     u2 = u.contiguous()
+    if u.dtype == torch.bfloat16:  # the tensor-core kernel takes W1^T and W2^T (K-major)
+        w1, w2 = w1.t(), w2.t()
     params = [t.to(compute_dtype).contiguous()
               for t in (w1, b1, w2, b2, scale1, bias1, scale2, bias2)]
     out = torch.empty_like(u2)

@@ -5,7 +5,9 @@ the JAX package, with the same arguments: kernels in HWIO, w0 (3, 3, 256,
 128), w1 (3, 3, 128, 64), w2 (64, out). The output is NCHW (B, out, h, w)
 float32. The kernels (`csrc/seg_head.cu`, two launches) replace the TPU
 kernel `_kernel` of `seg_head_pallas.py`; the source says what bounds them
-on the H100 and why there are two. They have no backward, as the TPU kernel
+on the H100 and why there are two. Their bfloat16 instantiations run on the
+tensor cores and take the conv kernels as (tap, out, in), K-major, which
+the wrapper prepares. They have no backward, as the TPU kernel
 has none: training runs the seg head op by op (`nn/fusion.py`), and the
 wrapper refuses a CUDA call that autograd would have to differentiate.
 """
@@ -64,8 +66,10 @@ def fused_seg_head(x, w0, b0, w1, b1, w2, b2, h: int, w: int) -> torch.Tensor:
     _build.same_device(x, w0, b0, w1, b1, w2, b2)
     cd = x.dtype
     x = x.contiguous()
-    w0k = w0.to(cd).reshape(9, 256, 128).contiguous()
-    w1k = w1.to(cd).reshape(9, 128, 64).contiguous()
+    w0k, w1k = w0.to(cd).reshape(9, 256, 128), w1.to(cd).reshape(9, 128, 64)
+    if cd == torch.bfloat16:  # the tensor-core kernels take (tap, out, in) (K-major)
+        w0k, w1k = w0k.transpose(1, 2), w1k.transpose(1, 2)
+    w0k, w1k = w0k.contiguous(), w1k.contiguous()
     f32 = lambda t: t.to(torch.float32).contiguous()
     b0k, b1k, w2k, b2k = f32(b0), f32(b1), f32(w2), f32(b2)
     y0 = torch.empty(b, hw, 128, dtype=cd, device=x.device)

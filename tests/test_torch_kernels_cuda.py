@@ -141,10 +141,13 @@ def test_lift_splat_ragged(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_ffn_ragged(dev, dtype):
-    """154 rows: the last 64-row tile is partial."""
+@pytest.mark.parametrize("b,n", [(2, 77), (1, 1), (1, 127), (1, 129), (1, 132 * 128 + 77)])
+def test_ffn_ragged(dev, dtype, b, n):
+    """Row counts off the 64-row tiles of the float32 kernel and the 128-row
+    blocks (64-row warpgroup halves) of the bfloat16 one: 154 rows in two
+    batches, 1, 127, 129, and more blocks than the card has SMs."""
     _, g, _ = _rng_tensors(dev, 3)
-    u = g(2, 77, 256).to(dtype)
+    u = g(b, n, 256).to(dtype)
     args = (g(256, 1024, scale=0.05), g(1024, scale=0.1), g(1024, 256, scale=0.05),
             g(256, scale=0.1), 1 + g(256, scale=0.1), g(256, scale=0.1), 1 + g(256, scale=0.1),
             g(256, scale=0.1))
@@ -155,16 +158,22 @@ def test_ffn_ragged(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_seg_head_ragged(dev, dtype):
-    """A 9x13 map (117 pixels, a partial 64-pixel tile; every row is near a
-    border) and 3 output classes."""
+@pytest.mark.parametrize("nout", [3, 4])
+@pytest.mark.parametrize("b,h,w", [(2, 9, 13), (2, 1, 1), (1, 17, 203), (1, 200, 200)])
+def test_seg_head_ragged(dev, dtype, nout, b, h, w):
+    """Maps off the pixel tiles (64 pixels in float32, 16 x 16 in bfloat16):
+    9 x 13 (every row near a border), a single pixel (every tap but the
+    centre reads the padding), 17 x 203 (partial tiles both ways) and the
+    flagship's 200 x 200 at B=1; 3 and 4 output classes; both launches."""
     _, g, _ = _rng_tensors(dev, 4)
-    x = g(2, 9 * 13, 256, scale=0.5).to(dtype)
+    x = g(b, h * w, 256, scale=0.5).to(dtype)
     wts = (g(3, 3, 256, 128, scale=0.03), g(128, scale=0.1), g(3, 3, 128, 64, scale=0.04),
-           g(64, scale=0.1), g(64, 3, scale=0.1), g(3, scale=0.1))
+           g(64, scale=0.1), g(64, nout, scale=0.1), g(nout, scale=0.1))
     f = sh.fused_seg_head
-    _check(lambda: f(x, *wts, 9, 13), lambda: sh.fused_seg_head_plain(x, *wts, 9, 13),
+    before = f.launches
+    _check(lambda: f(x, *wts, h, w), lambda: sh.fused_seg_head_plain(x, *wts, h, w),
            1e-4 if dtype == torch.float32 else 2 ** -6, f)
+    assert f.launches == before + 2
 
 
 def _small_models(dev, moved=False):
