@@ -9,9 +9,13 @@ Phases (any failure exits non-zero):
      flagship's B=6 shapes, in float32 and bfloat16: max errors against the
      stated tolerances, kernel / plain / library times (CUDA events around
      back-to-back calls), and the least time the card could take (bound);
+     the deformable sampling at uniform locations and at the main path's
+     local ones, beside its composite yardstick (`grid_sample` and a
+     weighted sum, two PyTorch calls);
   2b. the deformable-sampling backward kernel against its plain version at
-     the train-v2 shapes (B=8), in float32 and bfloat16, each of its four
-     outputs checked; the lift-splat backward (PyTorch ops) timed;
+     the train-v2 shapes (B=8), in float32 and bfloat16, at both kinds of
+     locations, each of its four outputs checked, beside autograd through
+     the composite yardstick; the lift-splat backward (PyTorch ops) timed;
   3. the flagship eval forward (VoVNetBEVTransformer, vovnet39, LSS v2, V3,
      6 cameras at 128x352 into a 200x200 BEV, B=6, bfloat16) through
      `build_model`, with every kernel's launch count checked, then timed;
@@ -27,7 +31,7 @@ Phases (any failure exits non-zero):
      1e-7, the yardstick of their limits.
 
 The last lines are the card (nvidia-smi), one JSON object with every
-kernel's numbers, and `{"ok": true, "device": {...}}`. Needs one CUDA card;
+kernel's numbers (the deformable kernels' at uniform locations), and `{"ok": true, "device": {...}}`. Needs one CUDA card;
 imports no JAX.
 """
 from __future__ import annotations
@@ -182,10 +186,13 @@ def lift_inputs(dev, b, seed=7):
             int(valid_f.sum()))
 
 
-def deform_inputs(dev, bh, seed=7):
+def deform_inputs(dev, bh, seed=7, locations="uniform"):
     """Sampling operands for bh value maps of the 200x200 grid: v, locations
-    in [0, 1] with 5% clamped to the edges, softmax weights, from a numpy
-    seed."""
+    in [0, 1], softmax weights, from a numpy seed. Locations "uniform" are
+    drawn over the whole map with 5% clamped to the edges; "local" are the
+    main path's kind, each query's own cell (the reference grid of
+    `nn/transformer.py`) plus Gaussian offsets of 4 cells, clamped to
+    [0, 1] (the offsets' init puts point k at k+1 cells)."""
     import numpy as np
     import torch
 
@@ -193,18 +200,55 @@ def deform_inputs(dev, bh, seed=7):
     n = GRID * GRID
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
     v = t(rng.normal(size=(bh, n, DH)))
-    lx = torch.clamp(t(rng.uniform(0, 1, size=(bh, NPTS, n))) * 1.1 - 0.05, 0, 1)
-    ly = torch.clamp(t(rng.uniform(0, 1, size=(bh, NPTS, n))) * 1.1 - 0.05, 0, 1)
+    if locations == "uniform":
+        lx = torch.clamp(t(rng.uniform(0, 1, size=(bh, NPTS, n))) * 1.1 - 0.05, 0, 1)
+        ly = torch.clamp(t(rng.uniform(0, 1, size=(bh, NPTS, n))) * 1.1 - 0.05, 0, 1)
+    else:
+        cells = np.linspace(0, 1, GRID, dtype=np.float32)
+        ref_y, ref_x = (a.reshape(n) for a in np.meshgrid(cells, cells, indexing="ij"))
+        lx = t(np.clip(ref_x + rng.normal(0, 4, (bh, NPTS, n)) / GRID, 0, 1))
+        ly = t(np.clip(ref_y + rng.normal(0, 4, (bh, NPTS, n)) / GRID, 0, 1))
     attn = torch.softmax(t(rng.normal(size=(bh, NPTS, n))), dim=1)
     return v, lx, ly, attn
+
+
+def deform_composite(v, lx, ly, attn, g=None):
+    """The deformable kernels' yardstick, never called by the port: the
+    original repo's formulation in two PyTorch calls, `F.grid_sample`
+    (align_corners=False, zero padding) on v as (BH, dh, H, W) at the grid
+    (BH, N, npts, 2) = 2 (lx, ly) - 1, then the attention-weighted sum over
+    the points, all in v's dtype (`grid_sample` takes bfloat16 on the card,
+    so in bfloat16 the grid is rounded to bfloat16 too). Returns the forward
+    as a function giving (BH, N, dh); with a cotangent g (BH, N, dh), the
+    backward instead: autograd through the same two calls, from a forward
+    run once here."""
+    import torch
+
+    bh, n, dh, dt = v.shape[0], lx.shape[2], v.shape[2], v.dtype
+    vimg = v.transpose(1, 2).reshape(bh, dh, GRID, GRID).contiguous()
+    grid = (torch.stack([lx, ly], -1).permute(0, 2, 1, 3) * 2 - 1).to(dt).contiguous()
+    at = attn.permute(0, 2, 1).to(dt).contiguous()
+
+    def forward():
+        s = torch.nn.functional.grid_sample(vimg, grid, mode="bilinear", padding_mode="zeros",
+                                            align_corners=False)  # (BH, dh, N, npts)
+        return (s * at[:, None]).sum(-1).transpose(1, 2)
+
+    if g is None:
+        return forward
+    leaves = [t.requires_grad_() for t in (vimg, grid, at)]
+    out = forward()
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
 
 def kernel_cases(dev):
     """(name, dtype, kernel_fn, plain_fn, library_fn or None, bytes, ops and
     the type they run in, tolerance) at the flagship's B=6 shapes, inputs
-    from a numpy seed. Bytes count each input read once and each output
-    written once; the gathers and the scatter do float32 arithmetic whatever
-    the storage type, the matrix products run in the storage type."""
+    from a numpy seed; the deformable sampling also at its two kinds of
+    locations, with its composite yardstick. Bytes count each input read
+    once and each output written once; the gathers and the scatter do
+    float32 arithmetic whatever the storage type, the matrix products run in
+    the storage type."""
     import numpy as np
     import torch
 
@@ -220,8 +264,8 @@ def kernel_cases(dev):
     n = GRID * GRID
     bh = B * NH
 
-    # 1. deformable sampling, 2. lift-splat
-    v, lx, ly, attn = deform_inputs(dev, bh)
+    # 1. deformable sampling at both kinds of locations, 2. lift-splat
+    deform = {kind: deform_inputs(dev, bh, locations=kind) for kind in ("uniform", "local")}
     feat, depth, seg, fidx, _, n_valid = lift_inputs(dev, B)
     p = depth.shape[1]
     fh_fw = feat.shape[1] // NCAM
@@ -239,16 +283,17 @@ def kernel_cases(dev):
         # difference may flip that rounding, one bf16 ulp (2^-7 relative)
         bf = dt == torch.bfloat16
 
-        vd = v.to(dt)
-        cases.append(dict(
-            name="deformable_sample", dtype=name_dt,
-            kernel=lambda vd=vd: ds.deformable_sample_combine_xy(vd, lx, ly, attn, GRID, GRID),
-            plain=lambda vd=vd: ds.deformable_sample_combine_xy_plain(vd, lx, ly, attn, GRID, GRID),
-            library=None,
-            bytes=bh * n * DH * es * 2 + 3 * bh * NPTS * n * 4,
-            ops=bh * n * NPTS * DH * 10, op_dtype="float32",
-            rel_tol=2 ** -7 if bf else 1e-5,
-        ))
+        for kind, (v, lx, ly, attn) in deform.items():
+            a = (v.to(dt), lx, ly, attn)
+            cases.append(dict(
+                name="deformable_sample", dtype=name_dt, locations=kind,
+                kernel=lambda a=a: ds.deformable_sample_combine_xy(*a, GRID, GRID),
+                plain=lambda a=a: ds.deformable_sample_combine_xy_plain(*a, GRID, GRID),
+                library=None, composite=deform_composite(*a),
+                bytes=bh * n * DH * es * 2 + 3 * bh * NPTS * n * 4,
+                ops=bh * n * NPTS * DH * 10, op_dtype="float32",
+                rel_tol=2 ** -7 if bf else 1e-5,
+            ))
         fd = feat.to(dt)
         lifted = (torch.gather(fd.float(), 1, fidx.long()[..., None].expand(-1, -1, 128))
                   * depth[..., None]).reshape(-1, 128)
@@ -314,41 +359,42 @@ def kernel_cases(dev):
 
 def backward_cases(dev):
     """The deformable-sampling backward at the train-v2 shapes (B=8: 64 value
-    maps of 200x200x32, 8 points): (dtype, kernel_fn, plain_fn, bytes, ops,
+    maps of 200x200x32, 8 points), at uniform and local locations: (dtype,
+    locations, kernel_fn, plain_fn, composite yardstick, bytes, ops,
     tolerances per output). Bytes: v and g in, lx/ly/attn in, dv in v's
     dtype and the three float32 small gradients out, each once (the float32
     buffer that the kernel sums dv in is its own scratch, not an output of
-    the function). Ops: per
-    (map, point, query, channel) and corner, an FMA for rc (2) and a
-    multiply, a multiply and an add for dv (3), in float32."""
+    the function). Ops: per (map, point, query, channel) and corner, an FMA
+    for rc (2) and a multiply, a multiply and an add for dv (3), in
+    float32."""
     import numpy as np
     import torch
 
     from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
 
     bh, n = TRAIN_B * NH, GRID * GRID
-    v, lx, ly, attn = deform_inputs(dev, bh, seed=11)
     g = torch.from_numpy(np.random.default_rng(12).normal(size=(bh, n, DH)).astype(np.float32)).to(dev)
+    inputs = {kind: deform_inputs(dev, bh, seed=11, locations=kind) for kind in ("uniform", "local")}
     cases = []
     for dt, name_dt in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
         es = 4 if dt == torch.float32 else 2
-        vd, gd = v.to(dt), g.to(dt)
-        cases.append(dict(
-            dtype=name_dt,
-            kernel=lambda vd=vd, gd=gd: ds.deformable_sample_combine_xy_backward(
-                vd, lx, ly, attn, gd, GRID, GRID),
-            plain=lambda vd=vd, gd=gd: ds.deformable_sample_combine_xy_backward_plain(
-                vd, lx, ly, attn, gd, GRID, GRID),
-            bytes=3 * bh * n * DH * es + 6 * bh * NPTS * n * 4,
-            ops=bh * n * NPTS * DH * 4 * 5,
-            # Ten times the errors measured on the H100 or more: dv 3.9e-6
-            # in float32 (atomics add in a varying order) and 1.6e-3 in
-            # bfloat16 (dv is rounded once at the end, and the order may
-            # flip that rounding); dlx/dly/dattn are float32 in both dtypes,
-            # 8.1e-6, where rc_01 - rc_00 cancels.
-            tol={"dv": 2 ** -6 if dt == torch.bfloat16 else 5e-5,
-                 "dlx": 1e-4, "dly": 1e-4, "dattn": 1e-4},
-        ))
+        for kind, (v, lx, ly, attn) in inputs.items():
+            a = (v.to(dt), lx, ly, attn, g.to(dt))
+            cases.append(dict(
+                dtype=name_dt, locations=kind,
+                kernel=lambda a=a: ds.deformable_sample_combine_xy_backward(*a, GRID, GRID),
+                plain=lambda a=a: ds.deformable_sample_combine_xy_backward_plain(*a, GRID, GRID),
+                composite=lambda a=a: deform_composite(*a[:4], g=a[4]),
+                bytes=3 * bh * n * DH * es + 6 * bh * NPTS * n * 4,
+                ops=bh * n * NPTS * DH * 4 * 5,
+                # Ten times the errors measured on the H100 or more: dv 3.9e-6
+                # in float32 (atomics add in a varying order) and 1.6e-3 in
+                # bfloat16 (dv is rounded once at the end, and the order may
+                # flip that rounding); dlx/dly/dattn are float32 in both
+                # dtypes, 8.1e-6, where rc_01 - rc_00 cancels.
+                tol={"dv": 2 ** -6 if dt == torch.bfloat16 else 5e-5,
+                     "dlx": 1e-4, "dly": 1e-4, "dattn": 1e-4},
+            ))
     return cases
 
 
@@ -504,8 +550,13 @@ def main() -> int:
                    rel_tol=c["rel_tol"], passed=passed, ms=kms, plain_ms=pms, library_ms=lms,
                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=c["bytes"], ops=c["ops"])
+        if "locations" in c:
+            comp = c["composite"]().float()
+            row.update(locations=c["locations"], composite_ms=time_ms(c["composite"]),
+                       composite_max_rel_err=float((comp - ref).abs().max()) / max(scale, 1e-30))
+            del comp
         print("kernel_check " + json.dumps(row))
-        rows[(c["name"], c["dtype"])] = row
+        rows[(c["name"], c["dtype"], c.get("locations", "uniform"))] = row
     if not ok:
         return _fail("a kernel disagrees with its plain version")
 
@@ -516,6 +567,9 @@ def main() -> int:
         torch.cuda.synchronize()
         kms = time_ms(c["kernel"])
         pms = time_ms(c["plain"], reps=5, warmup=1)
+        composite = c["composite"]()
+        cms = time_ms(composite, reps=10)
+        del composite
         t_bytes, t_ops = c["bytes"] / HBM_BYTES_PER_S * 1e3, c["ops"] / PEAK_OPS["float32"] * 1e3
         for out, a, b in zip(("dv", "dlx", "dly", "dattn"), got, ref):
             a, b = a.float(), b.float()
@@ -527,9 +581,10 @@ def main() -> int:
                        max_abs_err=err, max_rel_err=rel, rel_tol=c["tol"][out], passed=passed,
                        ms=kms, plain_ms=pms, library_ms=None, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       bytes=c["bytes"], ops=c["ops"])
+                       bytes=c["bytes"], ops=c["ops"], locations=c["locations"],
+                       composite_ms=cms)
             print("kernel_check " + json.dumps(row))
-            bwd_rows[(out, c["dtype"])] = row
+            bwd_rows[(out, c["dtype"], c["locations"])] = row
         del got, ref
     if not ok:
         return _fail("the backward kernel disagrees with its plain version")
@@ -740,16 +795,17 @@ def main() -> int:
     kernels = []
     for name, (src, replaces, n_eval, _) in KERNELS.items():
         if name == "deformable_sample_backward":
-            outs = [bwd_rows[(o, "bfloat16")] for o in ("dv", "dlx", "dly", "dattn")]
+            outs = [bwd_rows[(o, "bfloat16", "uniform")] for o in ("dv", "dlx", "dly", "dattn")]
             row = dict(outs[0], max_abs_err=max(r["max_abs_err"] for r in outs))
         else:
-            row = rows[(name, "bfloat16")]
+            row = rows[(name, "bfloat16", "uniform")]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name] if n_eval else train_launches[name],
             launches_eval_forward=launches[name], launches_train_step=train_launches[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            composite_ms=row.get("composite_ms"),
         ))
     print(card)
     print(json.dumps({"kernels": kernels}))

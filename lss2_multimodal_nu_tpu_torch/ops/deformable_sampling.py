@@ -104,8 +104,17 @@ def _check_args(v, lx, ly, attn, h, w, symbols, what):
     npts, n = lx.shape[1], lx.shape[2]
     if hw != h * w or lx.shape != (bh, npts, n) or ly.shape != lx.shape or attn.shape != lx.shape:
         raise ValueError(f"bad shapes v{tuple(v.shape)} lx{tuple(lx.shape)} for {h}x{w}")
+    if v.shape[2] % 8:
+        raise ValueError(f"the deformable-sampling {what} kernel takes dh a multiple of 8, "
+                         f"got {v.shape[2]}")
     _build.same_device(v, lx, ly, attn)
     return (t.to(torch.float32).contiguous() for t in (lx, ly, attn))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte boundary: the kernels move 16-byte slices."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _forward(v, lx, ly, attn, h, w):
@@ -116,7 +125,7 @@ def _forward(v, lx, ly, attn, h, w):
     lx, ly, attn = _check_args(v, lx, ly, attn, h, w, _SYMBOL, "forward")
     bh, hw, dh = v.shape
     npts, n = lx.shape[1], lx.shape[2]
-    v = v.contiguous()
+    v = _aligned(v)
     out = torch.empty(bh, n, dh, dtype=v.dtype, device=v.device)
     P, I = _build.P, _build.I
     fn = _build.bind("deformable_sample", _SYMBOL[v.dtype], [P] * 5 + [I] * 6 + [P])
@@ -143,7 +152,7 @@ def deformable_sample_combine_xy_backward(v, lx, ly, attn, g, h: int, w: int):
     if g.shape != (bh, n, dh) or g.dtype != v.dtype:
         raise ValueError(f"cotangent {g.dtype}{tuple(g.shape)}, expected {v.dtype}{(bh, n, dh)}")
     _build.same_device(v, g)
-    v, g = v.contiguous(), g.contiguous()
+    v, g = _aligned(v), _aligned(g)
     dv = torch.zeros(bh, hw, dh, dtype=torch.float32, device=v.device)
     dlx, dly, dattn = (torch.empty(bh, npts, n, dtype=torch.float32, device=v.device)
                        for _ in range(3))

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 ragged shapes that the flagship's (all multiples of the kernels' tiles)
 never reach: partial query, row and pixel tiles, channel counts that are
-no multiple of a warp, non-square maps. Plus the whole model in float32 on
+no multiple of a warp, non-square maps, and the deformable kernels at the
+edges of their query tiles and lane groups (and their refusal of a dh that
+is no multiple of 8). Plus the whole model in float32 on
 the card against the CPU at a 30x30 BEV grid, in eval and for one train
 step with its gradients.
 
@@ -123,6 +125,110 @@ def test_deformable_function_launches_both_kernels(dev):
     want = ds.deformable_sample_combine_xy_backward_plain(*[t.detach() for t in leaves], cot, h, w)
     for leaf, b in zip(leaves, want):
         assert float((leaf.grad - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# The deformable kernels serve a query with a group of lanes, each owning 16
+# bytes of its dh channels (4 lanes in bf16 at dh=32, 5 at dh=40, 8 in
+# float32), and a block of 256 threads with a tile of the query grid 8
+# queries wide, whose rows hold w queries: 8x8 queries in bf16 at dh=32, the
+# main path's. (h, w, n) at that tile's edges:
+DEFORM_EDGES = {
+    "one_query": (7, 9, 1),
+    "tile_minus_1": (8, 8, 63),
+    "tile_plus_1": (9, 8, 65),
+    "ragged_last_warp": (8, 8, 61),  # 5 of the last warp's 8 queries
+    "width_off_tile": (6, 13, 78),   # a tile of 8 columns and one of 5
+}
+
+
+def _deform_edge_inputs(dev, dtype, edge, npts, dh, seed):
+    """v, lx, ly, attn and a cotangent at `edge`, a fifth of the locations
+    exactly 0 and a fifth exactly 1, so that corners fall outside the map."""
+    rng, g, _ = _rng_tensors(dev, seed)
+    h, w, n = DEFORM_EDGES[edge]
+    bh = 2
+
+    def locations():
+        r = rng.uniform(0, 1, (bh, npts, n))
+        loc = np.where(r < 0.2, 0.0, np.where(r < 0.4, 1.0, rng.uniform(0, 1, r.shape)))
+        return torch.from_numpy(loc.astype(np.float32)).to(dev)
+
+    v = g(bh, h * w, dh).to(dtype)
+    lx, ly = locations(), locations()
+    attn = torch.softmax(g(bh, npts, n), dim=1)
+    return (h, w), (v, lx, ly, attn), g(bh, n, dh).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [32, 40, 48])
+@pytest.mark.parametrize("npts", [1, 5, 8])
+@pytest.mark.parametrize("edge", list(DEFORM_EDGES))
+def test_deformable_edges(dev, dtype, dh, npts, edge):
+    """Kernel 1 at the edges of its tiles and lane groups: 1, 63, 65 and 61
+    queries, a width off the tile's, npts 1 and 5 (the generic kernel) and 8
+    (its own instance), dh 32, 40 and 48, locations exactly 0 and 1."""
+    (h, w), args, _ = _deform_edge_inputs(dev, dtype, edge, npts, dh, 11)
+    f = ds.deformable_sample_combine_xy
+    _check(lambda: f(*args, h, w), lambda: ds.deformable_sample_combine_xy_plain(*args, h, w),
+           1e-5 if dtype == torch.float32 else 2 ** -7, f)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [32, 40, 48])
+@pytest.mark.parametrize("npts", [1, 5, 8])
+@pytest.mark.parametrize("edge", list(DEFORM_EDGES))
+def test_deformable_backward_edges(dev, dtype, dh, npts, edge):
+    """Kernel 2 at the cases of `test_deformable_edges`, each of its four
+    outputs at the tolerances of `test_deformable_backward_ragged`."""
+    (h, w), args, cot = _deform_edge_inputs(dev, dtype, edge, npts, dh, 12)
+    f = ds.deformable_sample_combine_xy_backward
+    before = f.launches
+    got = f(*args, cot, h, w)
+    torch.cuda.synchronize()
+    assert f.launches == before + 1
+    want = ds.deformable_sample_combine_xy_backward_plain(*args, cot, h, w)
+    tols = (5e-5 if dtype == torch.float32 else 2 ** -6, 1e-4, 1e-4, 1e-4)
+    for name, a, b, tol in zip(("dv", "dlx", "dly", "dattn"), got, want, tols):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("npts", [5, 8])
+def test_deformable_rows_wider_than_a_warp(dev, dtype, npts):
+    """dh=264: 33 slices of 16 bytes in bf16 and 66 in float32, more than
+    a warp's 32 lanes, so each lane serves a query in 2 or 3 passes. Both
+    kernels against their plain versions at the tolerances above."""
+    (h, w), args, cot = _deform_edge_inputs(dev, dtype, "tile_plus_1", npts, 264, 14)
+    f = ds.deformable_sample_combine_xy
+    bf = dtype == torch.bfloat16
+    _check(lambda: f(*args, h, w), lambda: ds.deformable_sample_combine_xy_plain(*args, h, w),
+           2 ** -7 if bf else 1e-5, f)
+    got = ds.deformable_sample_combine_xy_backward(*args, cot, h, w)
+    want = ds.deformable_sample_combine_xy_backward_plain(*args, cot, h, w)
+    for name, a, b, tol in zip(("dv", "dlx", "dly", "dattn"), got, want,
+                               (2 ** -6 if bf else 5e-5, 1e-4, 1e-4, 1e-4)):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deformable_dh_off_16_bytes_raises(dev, dtype):
+    """dh=36 is no multiple of 8, so a row is no whole number of 16-byte
+    slices: both wrappers raise on the card, launch nothing and do not fall
+    back to the plain versions."""
+    (h, w), (v, lx, ly, attn), _ = _deform_edge_inputs(dev, dtype, "tile_minus_1", 5, 40, 13)
+    v = v[..., :36].contiguous()
+    cot = torch.zeros(v.shape[0], lx.shape[2], 36, dtype=dtype, device=dev)
+    counters = (ds.deformable_sample_combine_xy, ds.deformable_sample_combine_xy_backward)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ds.deformable_sample_combine_xy(v, lx, ly, attn, h, w)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ds.deformable_sample_combine_xy_backward(v, lx, ly, attn, cot, h, w)
+    assert [c.launches for c in counters] == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
