@@ -4,14 +4,18 @@
 
 Phases (any failure exits non-zero):
   1. setup: versions, the card's name and power limit, TF32 off, build the
-     CUDA kernels of `lss2_multimodal_nu_tpu_torch/csrc/` with nvcc (timed);
+     CUDA kernels of `lss2_multimodal_nu_tpu_torch/csrc/` with nvcc (timed),
+     each kernel's registers and spills (ptxas) and the TF32 tensor-core
+     instructions (HGMMA) in the libraries (cuobjdump);
   2. every forward kernel against its plain PyTorch version at the
      flagship's B=6 shapes, in float32 and bfloat16: max errors against the
      stated tolerances, kernel / plain / library times (CUDA events around
-     back-to-back calls), and the least time the card could take (bound);
-     the deformable sampling at uniform locations and at the main path's
-     local ones, beside its composite yardstick (`grid_sample` and a
-     weighted sum, two PyTorch calls);
+     back-to-back calls), and the least time the card could take (bound;
+     the float32 FFN tail and seg head run as three TF32 passes, beside the
+     SIMT float32 bound); the float32 weights' TF32 split against
+     `ops/_tf32.py` bit for bit; the deformable sampling at uniform
+     locations and at the main path's local ones, beside its composite
+     yardstick (`grid_sample` and a weighted sum, two PyTorch calls);
   2b. the deformable-sampling backward kernel against its plain version at
      the train-v2 shapes (B=8), in float32 and bfloat16, at both kinds of
      locations, each of its four outputs checked, beside autograd through
@@ -19,6 +23,7 @@ Phases (any failure exits non-zero):
   3. the flagship eval forward (VoVNetBEVTransformer, vovnet39, LSS v2, V3,
      6 cameras at 128x352 into a 200x200 BEV, B=6, bfloat16) through
      `build_model`, with every kernel's launch count checked, then timed;
+  3b. the same in float32, the models' and the JAX CLI's default precision;
   4. the same weights and inputs in float32 at B=1 on the card (kernels)
      against the CPU (plain versions);
   5. the flagship train step (train-v2: B=8, lr 1e-4, wd 1e-8, clip 10, the
@@ -46,8 +51,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and op/s by type.
+# The float32 tensor-core kernels run each product as three TF32 passes.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 
 B, NCAM, IMG_H, IMG_W = 6, 6, 128, 352
 NH, DH, NPTS, GRID = 8, 32, 8, 200
@@ -68,6 +74,61 @@ TRAIN_B, STEPS_PER_EPOCH = 8, 1
 # sampling) moved by at most 6.4e-4 in the control: GRAD_TOL_LINEAR 1e-2. A
 # gradient that is cut off is off by 1.
 GRAD_TOL, GRAD_NORM_TOL, GRAD_TOL_LINEAR = 0.2, 0.05, 1e-2
+
+
+def ptxas_lines():
+    """(library, kernel, spill line, registers line) of every kernel in the
+    build logs of `ops/_build.py` (nvcc -Xptxas -v); a kernel's C++ name is
+    cut from its mangled one."""
+    import re
+
+    from lss2_multimodal_nu_tpu_torch.ops import _build
+
+    out = []
+    for log in sorted(_build.BUILD_DIR.glob("*.log")):
+        kernel = spill = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = _kernel_name(m.group(1))
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line and kernel is not None:
+                out.append((log.stem, kernel, spill, line.split(":", 1)[1].strip()))
+            elif "error" in line.lower():
+                out.append((log.stem, "error", line.strip(), ""))
+    return out
+
+
+def _kernel_name(mangled):
+    """The first length-prefixed name ending in `_kernel` of a mangled C++
+    name, with its template's integer arguments."""
+    import re
+
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + len(m.group())
+        name = mangled[start:start + int(m.group())]
+        if name.endswith("_kernel"):
+            tail = mangled[start + len(name):]
+            args = re.findall(r"L[ib](\d+)E", tail[:tail.find("EEv") + 1])
+            return name + (f"<{', '.join(args)}>" if args else "")
+        i = start + len(name)
+    return mangled
+
+
+def tf32_hgmma_count(lib):
+    """Number of TF32 warpgroup MMA instructions in a built library's SASS."""
+    cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
+    if not cuobjdump.exists():
+        return "not measured (no cuobjdump)"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120).stdout
+    return sum(1 for line in sass.splitlines() if "HGMMA" in line and "TF32" in line)
 
 
 def _fail(msg: str) -> int:
@@ -132,27 +193,33 @@ def time_ms(fn, reps=20, warmup=3):
 
 
 # substrings of the port's own kernel names, as the profiler lists them
-PORT_KERNEL_NAMES = ("deform_sample", "lift_splat", "ffn_ln", "conv3x3")
+PORT_KERNEL_NAMES = ("deform_sample", "lift_splat", "ffn_ln", "conv3x3", "split_tf32")
 
 
 def device_profile(fn, top=12):
-    """Device time by kernel name over one call of `fn` under torch.profiler
-    (CUPTI): the busiest kernels and copies, and every kernel of the port's
-    own, and their total busy time, in ms. Ranges that annotate the device
-    timeline (`Optimizer.step#Adam.step`) are not work of their own and are
-    left out."""
+    """Device time over one call of `fn` under torch.profiler (CUPTI): busy
+    ms, the length of the union of the kernels' and copies' intervals (cuDNN
+    may run kernels side by side, so their sum can exceed the call), and by
+    kernel name the busiest ones and every kernel of the port's own, as
+    (name, summed ms, count). Ranges that annotate the device timeline
+    (`Optimizer.step#Adam.step`) are not work of their own and are left
+    out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    rows = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count) for e in kern),
-                  key=lambda r: -r[1])
+    work = lambda e: (e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in prof.events() if work(e)):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    rows = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages() if work(e)), key=lambda r: -r[1])
     shown = [r for i, r in enumerate(rows) if i < top or any(k in r[0] for k in PORT_KERNEL_NAMES)]
-    return sum(r[1] for r in rows), shown
+    return busy / 1e3, sum(r[1] for r in rows), shown
 
 
 def lift_inputs(dev, b, seed=7):
@@ -248,7 +315,7 @@ def kernel_cases(dev):
     locations, with its composite yardstick. Bytes count each input read
     once and each output written once; the gathers and the scatter do
     float32 arithmetic whatever the storage type, the matrix products run in
-    the storage type."""
+    the storage type (float32 as three TF32 passes)."""
     import numpy as np
     import torch
 
@@ -328,7 +395,7 @@ def kernel_cases(dev):
             plain=lambda td=td, dt=dt: ffn.fused_ffn_ln_plain(td, *args, eps=1e-6, compute_dtype=dt),
             library=ffn_library,
             bytes=2 * B * n * 256 * es + 2 * 256 * 1024 * es,
-            ops=4 * B * n * 256 * 1024, op_dtype=name_dt,
+            ops=4 * B * n * 256 * 1024, op_dtype="bfloat16" if bf else "tf32x3",
             # bf16: LN1 and GELU outputs are rounded to bf16 inside; one flipped
             # rounding moves an output by about a bf16 ulp
             rel_tol=2 ** -6 if bf else 1e-4,
@@ -348,9 +415,15 @@ def kernel_cases(dev):
             name="seg_head", dtype=name_dt,
             kernel=lambda td=td: sh.fused_seg_head(td, *sw, GRID, GRID),
             plain=lambda td=td: sh.fused_seg_head_plain(td, *sw, GRID, GRID),
+            # cuDNN on the token layout's strided view, and on a contiguous
+            # NCHW copy (made here, outside the timed window) with
+            # `cudnn.benchmark` on for its timing only; the faster counts
             library=cudnn,
+            library_alt=dict(name="cuDNN, contiguous NCHW, benchmark",
+                             fn=lambda x=ximg.contiguous(), cw=cw, cb=cb: cudnn(x, cw, cb)),
             bytes=B * n * 256 * es + B * n * 4 * 4,
-            ops=2 * B * n * (9 * 256 * 128 + 9 * 128 * 64 + 64 * 4), op_dtype=name_dt,
+            ops=2 * B * n * (9 * 256 * 128 + 9 * 128 * 64 + 64 * 4),
+            op_dtype="bfloat16" if bf else "tf32x3",
             # conv0's output crosses memory in bf16 and may round differently
             rel_tol=2 ** -6 if bf else 1e-4,
         ))
@@ -488,6 +561,102 @@ def grad_diffs(got, want, names):
     return out
 
 
+def eval_forward(dev, dtype, phase, wrappers):
+    """Phase 3 (bfloat16) or 3b (float32): the flagship eval forward at B=6
+    through `build_model`: every kernel's launches (counts set to 0 just
+    before one forward, read just after) against `KERNELS`, the outputs'
+    shapes and finiteness, the host-clock median of 10 forwards, the stages
+    (CUDA events), device busy time, idle share and the busiest kernels
+    (torch.profiler). Returns (launches, failure message or None, the
+    numbers: forward ms, busy ms, idle share, stages)."""
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.config import Config, ModelConfig
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+
+    short = {"bfloat16": "bf16", "float32": "f32"}[dtype]
+    cfg = Config(model=ModelConfig(family="vovnet_transformer", vovnet_type="vovnet39",
+                                   lss_version="v2", compute_dtype=dtype))
+    model = build_model(cfg, device=dev, seed=0)
+    perturb(model, seed=1)
+    inputs = [torch.from_numpy(a).to(dev) for a in fake_inputs(B)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        model(*inputs)  # warm-up (cuDNN autotune, allocator)
+        torch.cuda.synchronize()
+        for f in wrappers.values():
+            f.launches = 0
+        seg, action, desc = model(*inputs)
+        torch.cuda.synchronize()
+        launches = {name: f.launches for name, f in wrappers.items()}
+        expected = {name: k[2] for name, k in KERNELS.items()}
+        print(f"main path launches, {short} forward: {launches}")
+        if launches != expected:
+            return launches, f"{short} launch counts {launches}, expected {expected}", None
+        shapes = (tuple(seg.shape), tuple(action.shape), tuple(desc.shape))
+        if shapes != ((B, 4, GRID, GRID), (B, 4), (B, 8)):
+            return launches, f"{short} output shapes {shapes}", None
+        if not all(bool(torch.isfinite(t).all()) for t in (seg, action, desc)):
+            return launches, f"non-finite {short} output", None
+        fwd = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model(*inputs)
+            torch.cuda.synchronize()
+            fwd.append((time.perf_counter() - t1) * 1e3)
+        fwd.sort()
+        fwd_ms = fwd[len(fwd) // 2]
+        # stage breakdown through the model's own stage methods
+        c3, c4 = model.encode_cameras(inputs[0])
+        bev = model.lift_to_bev(c3, c4, *inputs[1:])
+        _, refined = model.bev_encoder(bev)
+        stages = {
+            "encode_cameras": time_ms(lambda: model.encode_cameras(inputs[0]), reps=10),
+            "lift_to_bev": time_ms(lambda: model.lift_to_bev(c3, c4, *inputs[1:]), reps=10),
+            "bev_encoder": time_ms(lambda: model.bev_encoder(bev), reps=10),
+            "txt_branch": time_ms(lambda: model.txt_branch(c3, refined), reps=10),
+        }
+        busy_ms, summed_ms, top = device_profile(lambda: model(*inputs))
+    print(f"forward B={B} {short}: {fwd_ms:.3f} ms median of 10 ({fwd[0]:.3f}-{fwd[-1]:.3f}), "
+          f"{B / fwd_ms * 1e3:.2f} samples/s (a sample is {NCAM} cameras)")
+    print(f"stages, {short} (ms, CUDA events): {json.dumps(stages)}")
+    idle = 1 - busy_ms / fwd_ms if busy_ms else None
+    print(f"profiled {short} forward: device busy {busy_ms:.3f} ms (kernel times summed "
+          f"{summed_ms:.3f}), idle share of the timed forward "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    for name, ms, count in top:
+        print(f"  {ms:9.3f} ms {count:4d}x {name}")
+    print(f"peak device memory in phase {phase}: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches, None, dict(forward_ms=fwd_ms, busy_ms=busy_ms, idle_share=idle, stages=stages)
+
+
+def split_checks(dev):
+    """The float32 kernels' TF32 split of their weights on the card (the
+    launch each float32 call makes first) against `ops/_tf32.py`, bit for
+    bit, at the flagship's weight shapes from a numpy seed. Returns the names
+    of the kernels whose split differs."""
+    import numpy as np
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.ops import ffn
+    from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
+
+    rng = np.random.default_rng(13)
+    g = lambda *s: torch.from_numpy((rng.normal(size=s) * 0.05).astype(np.float32)).to(dev)
+    bad = []
+    for name, mod, ws in (("ffn_ln", ffn, (g(256, 1024), g(1024, 256))),
+                          ("seg_head", sh, (g(3, 3, 256, 128), g(3, 3, 128, 64)))):
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(mod.tf32_split_weights(*ws), mod.tf32_split_weights_plain(*ws)))
+        print(f"TF32 split of the {name} weights, card against ops/_tf32.py: "
+              f"{'bit for bit equal' if same else 'DIFFERS'}")
+        if not same:
+            bad.append(name)
+    return bad
+
+
 def main() -> int:
     try:
         import numpy  # noqa: F401
@@ -524,10 +693,11 @@ def main() -> int:
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s for {sorted(built)}")
-    for log in sorted(_build.BUILD_DIR.glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "Used" in line or "error" in line.lower():
-                print(f"  {log.stem}: {line.strip()}")
+    for name, kernel, spill, used in ptxas_lines():
+        print(f"  ptxas {name}: {kernel}: {spill}; {used}")
+    for name in ("ffn_ln", "seg_head"):
+        print(f"  {name}: {tf32_hgmma_count(_build.BUILD_DIR / f'lib{name}.so')} TF32 HGMMA "
+              "instructions in the library (cuobjdump -sass)")
 
     # ---- 2. kernels against their plain versions
     rows = {}
@@ -544,12 +714,25 @@ def main() -> int:
         kms = time_ms(c["kernel"])
         pms = time_ms(c["plain"], reps=20, warmup=1)
         lms = time_ms(c["library"]) if c["library"] is not None else None
+        lib_which = "strided view" if "library_alt" in c else None
+        if "library_alt" in c:
+            bench, torch.backends.cudnn.benchmark = torch.backends.cudnn.benchmark, True
+            try:
+                alt_ms = time_ms(c["library_alt"]["fn"])
+            finally:
+                torch.backends.cudnn.benchmark = bench
+            if alt_ms < lms:
+                lms, lib_which = alt_ms, c["library_alt"]["name"]
         peak = PEAK_OPS[c["op_dtype"]]
         t_bytes, t_ops = c["bytes"] / HBM_BYTES_PER_S * 1e3, c["ops"] / peak * 1e3
         row = dict(name=c["name"], dtype=c["dtype"], max_abs_err=err, max_rel_err=rel,
                    rel_tol=c["rel_tol"], passed=passed, ms=kms, plain_ms=pms, library_ms=lms,
                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=c["bytes"], ops=c["ops"])
+                   bytes=c["bytes"], ops=c["ops"], op_type=c["op_dtype"])
+        if c["op_dtype"] == "tf32x3":
+            row["simt_float32_bound_ms"] = max(t_bytes, c["ops"] / PEAK_OPS["float32"] * 1e3)
+        if lib_which is not None:
+            row["library_is"] = lib_which
         if "locations" in c:
             comp = c["composite"]().float()
             row.update(locations=c["locations"], composite_ms=time_ms(c["composite"]),
@@ -559,6 +742,9 @@ def main() -> int:
         rows[(c["name"], c["dtype"], c.get("locations", "uniform"))] = row
     if not ok:
         return _fail("a kernel disagrees with its plain version")
+    bad = split_checks(dev)
+    if bad:
+        return _fail(f"the TF32 split of {bad} differs from ops/_tf32.py")
 
     # ---- 2b. the deformable-sampling backward kernel at the train-v2 shapes
     bwd_rows = {}
@@ -596,64 +782,17 @@ def main() -> int:
     print(f"lift-splat backward (PyTorch gather + index_add_), B={TRAIN_B} bf16: {lsb_ms:.3f} ms")
     del feat, depth, seg_i, fidx, g_bev
 
-    # ---- 3. the flagship eval forward at full width, B=6, bfloat16
-    cfg = Config(model=ModelConfig(family="vovnet_transformer", vovnet_type="vovnet39",
-                                   lss_version="v2", compute_dtype="bfloat16"))
-    model = build_model(cfg, device=dev, seed=0)
-    perturb(model, seed=1)
-    inputs = [torch.from_numpy(a).to(dev) for a in fake_inputs(B)]
+    # ---- 3. the flagship eval forward at full width, B=6, bfloat16; 3b. float32
     wrappers = {"deformable_sample": ds.deformable_sample_combine_xy,
                 "deformable_sample_backward": ds.deformable_sample_combine_xy_backward,
                 "lift_splat": ls.fused_lift_splat, "ffn_ln": ffn.fused_ffn_ln,
                 "seg_head": sh.fused_seg_head}
-    torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
-        model(*inputs)  # warm-up (cuDNN autotune, allocator)
-        torch.cuda.synchronize()
-        for f in wrappers.values():
-            f.launches = 0
-        seg, action, desc = model(*inputs)
-        torch.cuda.synchronize()
-        launches = {name: f.launches for name, f in wrappers.items()}
-        expected = {name: k[2] for name, k in KERNELS.items()}
-        print(f"main path launches: {launches}")
-        if launches != expected:
-            return _fail(f"launch counts {launches}, expected {expected}")
-        shapes = (tuple(seg.shape), tuple(action.shape), tuple(desc.shape))
-        if shapes != ((B, 4, GRID, GRID), (B, 4), (B, 8)):
-            return _fail(f"output shapes {shapes}")
-        if not all(bool(torch.isfinite(t).all()) for t in (seg, action, desc)):
-            return _fail("non-finite output")
-        fwd = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            model(*inputs)
-            torch.cuda.synchronize()
-            fwd.append((time.perf_counter() - t1) * 1e3)
-        fwd.sort()
-        fwd_ms = fwd[len(fwd) // 2]
-        # stage breakdown through the model's own stage methods
-        c3, c4 = model.encode_cameras(inputs[0])
-        bev = model.lift_to_bev(c3, c4, *inputs[1:])
-        _, refined = model.bev_encoder(bev)
-        stages = {
-            "encode_cameras": time_ms(lambda: model.encode_cameras(inputs[0]), reps=10),
-            "lift_to_bev": time_ms(lambda: model.lift_to_bev(c3, c4, *inputs[1:]), reps=10),
-            "bev_encoder": time_ms(lambda: model.bev_encoder(bev), reps=10),
-            "txt_branch": time_ms(lambda: model.txt_branch(c3, refined), reps=10),
-        }
-        busy_ms, top = device_profile(lambda: model(*inputs))
-    print(f"forward B={B} bf16: {fwd_ms:.3f} ms median of 10, {B / fwd_ms * 1e3:.2f} samples/s "
-          f"(a sample is {NCAM} cameras)")
-    print(f"stages (ms, CUDA events): {json.dumps(stages)}")
-    idle = 1 - busy_ms / fwd_ms if busy_ms else None
-    print(f"profiled forward: device busy {busy_ms:.3f} ms, idle share of the timed forward "
-          f"{'not measured' if idle is None else f'{idle:.3f}'}")
-    for name, ms, count in top:
-        print(f"  {ms:9.3f} ms {count:4d}x {name}")
-    print(f"peak device memory in phase 3: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    del model, seg, action, desc, c3, c4, bev, refined
+    launches, err, _ = eval_forward(dev, "bfloat16", "3", wrappers)
+    if err:
+        return _fail(err)
+    _, err, _ = eval_forward(dev, "float32", "3b", wrappers)
+    if err:
+        return _fail(err)
 
     # ---- 4. float32 on the card (kernels) against the CPU (plain versions), B=1
     cfg32 = Config(model=ModelConfig(family="vovnet_transformer", compute_dtype="float32"))
@@ -716,7 +855,8 @@ def main() -> int:
         step_ms = times[len(times) // 2]
         split = split_step_ms(model, opt, sched, batch, step)
         step += 5
-        busy_ms, top = device_profile(lambda: train_step(model, opt, sched, batch, step), top=15)
+        busy_ms, summed_ms, top = device_profile(lambda: train_step(model, opt, sched, batch, step),
+                                                 top=15)
         peak = torch.cuda.max_memory_allocated() / 1e9
     except torch.cuda.OutOfMemoryError:
         return _fail(f"the B={TRAIN_B} train step does not fit on the card: peak "
@@ -724,8 +864,8 @@ def main() -> int:
     print(f"train step B={TRAIN_B} bf16: {step_ms:.3f} ms median of 10 "
           f"({times[0]:.3f}-{times[-1]:.3f}), {TRAIN_B / step_ms * 1e3:.2f} samples/s")
     print(f"train step split (ms, CUDA events, median of 5): {json.dumps(split)}")
-    print(f"profiled train step: device busy {busy_ms:.3f} ms, idle share of the timed step "
-          f"{1 - busy_ms / step_ms:.3f}")
+    print(f"profiled train step: device busy {busy_ms:.3f} ms (kernel times summed "
+          f"{summed_ms:.3f}), idle share of the timed step {1 - busy_ms / step_ms:.3f}")
     for name, ms, count in top:
         print(f"  {ms:9.3f} ms {count:4d}x {name}")
     print(f"peak device memory in phase 5: {peak:.2f} GB")

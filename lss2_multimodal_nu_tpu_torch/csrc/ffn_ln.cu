@@ -12,12 +12,14 @@
 // residual adds the float s, not its rounded copy.
 //
 // Bound on the H100: operations. At the flagship (240 000 x 256 rows, hidden
-// 1024) the two products are 252 GFLOP against 246 MB of rows in and out,
-// so the tensor cores set the floor (0.25 ms at the bf16 peak). Both
-// instantiations keep the 1024-wide hidden activation on chip, which is what
-// the fusion is for.
+// 1024) the two products are 252 GFLOP against 246 MB of rows in and out
+// (float32: 492 MB), so the tensor cores set the floor: 0.25 ms at the bf16
+// peak, 1.53 ms for float32 as three TF32 passes at the TF32 peak (3.76 ms
+// at the SIMT float32 peak, the first port's design). Both instantiations
+// keep the 1024-wide hidden activation on chip, which is what the fusion is
+// for.
 //
-// bfloat16 (below, `bf16k`): warpgroup products (wgmma) fed by TMA. A
+// bfloat16 (`bf16k`): warpgroup products (wgmma) fed by TMA. A
 // producer warpgroup loads each block's 128-row u tile and streams the
 // weights through a 2-stage ring in wgmma's swizzled layout, with mbarriers;
 // two consumer warpgroups of 64 rows each run product 1 from shared memory,
@@ -26,10 +28,11 @@
 // erff for 246 M hidden values costs about a third of the kernel's time and
 // runs while the tensor cores wait, as both consumers reach it together.
 //
-// float: the SIMT design of the first port, kept as the full-float32 parity
-// path: a block owns 64 rows, walks the hidden width in chunks of 64 with
-// FMA tile products and the y accumulator in registers; weight tiles are
-// staged through shared memory. It is slower than cuBLAS's float32 products.
+// float (`tf32k`): the same warpgroups on TF32 wgmma in three passes
+// (hopper.cuh), so that the result is as close as float32 products: the
+// weights are split into hi and lo once per call by a small kernel, the
+// activations in registers. What bounds its design is shared memory (see
+// the note there).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -37,123 +40,9 @@ namespace {
 
 constexpr int C = 256;    // model width
 constexpr int F = 1024;   // hidden width
-constexpr int M = 64;     // rows per block
-constexpr int FC = 64;    // hidden chunk
-constexpr int KC = 32;    // depth of a staged weight tile
-constexpr int LDS = C + 4;   // float rows: s, then s + y
-constexpr int LDA = C + 8;   // rows of s, the A operand of product 1
-constexpr int LDH = FC + 4;  // float hidden chunk
-constexpr int LDG = FC + 8;  // GELU output, the A operand of product 2
-constexpr int LDW = C + 8;   // staged weight tile (width FC or C)
-
-constexpr size_t SMEM_F32 = lss::region<float>(M * LDS) + lss::region<float>(M * LDA) +
-                            lss::region<float>(M * LDH) + lss::region<float>(M * LDG) +
-                            lss::region<float>(KC * LDW);
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
-
-__global__ void __launch_bounds__(lss::kThreads)
-    ffn_ln_kernel(const float* __restrict__ u, const float* __restrict__ w1,
-                  const float* __restrict__ b1, const float* __restrict__ w2,
-                  const float* __restrict__ b2, const float* __restrict__ g1,
-                  const float* __restrict__ o1, const float* __restrict__ g2,
-                  const float* __restrict__ o2, float* __restrict__ out, int rows, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* s32 = (float*)smem;                                               // M x LDS
-  float* sa = (float*)(smem + lss::region<float>(M * LDS));                // M x LDA
-  float* sh = (float*)((unsigned char*)sa + lss::region<float>(M * LDA));  // M x LDH
-  float* sg = (float*)((unsigned char*)sh + lss::region<float>(M * LDH));  // M x LDG
-  float* sw = (float*)((unsigned char*)sg + lss::region<float>(M * LDG));  // KC x LDW
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int row0 = blockIdx.x * M;
-  constexpr int PER = C / 32;
-
-  // 1. LN1, one warp per row.
-  for (int r = warp; r < M; r += lss::kThreads / 32) {
-    const int row = row0 + r;
-    float x[PER];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      x[i] = row < rows ? u[(size_t)row * C + lane + 32 * i] : 0.f;
-      sum += x[i];
-    }
-    const float mu = lss::warp_sum(sum) / C;
-    float sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) sq += (x[i] - mu) * (x[i] - mu);
-    const float rs = rsqrtf(lss::warp_sum(sq) / C + eps);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = lane + 32 * i;
-      const float s = row < rows ? (x[i] - mu) * rs * g1[c] + o1[c] : 0.f;
-      s32[r * LDS + c] = s;
-      sa[r * LDA + c] = s;
-    }
-  }
-  __syncthreads();
-
-  // 2. y starts at s (the residual); hidden chunks accumulate into it.
-  lss::TileMMA<M, C> y;
-  y.load(s32, LDS);
-  lss::TileMMA<M, FC> hacc;
-  for (int k0 = 0; k0 < F; k0 += FC) {
-    hacc.zero();
-    for (int kc = 0; kc < C; kc += KC) {
-      for (int e = tid; e < KC * FC; e += lss::kThreads) {
-        const int rr = e / FC, cc = e % FC;
-        sw[rr * LDW + cc] = w1[(size_t)(kc + rr) * F + k0 + cc];
-      }
-      __syncthreads();
-      hacc.mma(sa + kc, LDA, sw, LDW, KC);
-      __syncthreads();
-    }
-    hacc.store(sh, LDH);
-    __syncthreads();
-    for (int e = tid; e < M * FC; e += lss::kThreads) {
-      const int rr = e / FC, cc = e % FC;
-      sg[rr * LDG + cc] = gelu_erf(sh[rr * LDH + cc] + b1[k0 + cc]);
-    }
-    __syncthreads();
-    for (int kc = 0; kc < FC; kc += KC) {
-      for (int e = tid; e < KC * C; e += lss::kThreads) {
-        const int rr = e / C, cc = e % C;
-        sw[rr * LDW + cc] = w2[(size_t)(k0 + kc + rr) * C + cc];
-      }
-      __syncthreads();
-      y.mma(sg + kc, LDG, sw, LDW, KC);
-      __syncthreads();
-    }
-  }
-  y.store(s32, LDS);
-  __syncthreads();
-
-  // 3. + b2, LN2, store.
-  for (int r = warp; r < M; r += lss::kThreads / 32) {
-    const int row = row0 + r;
-    if (row >= rows) continue;
-    float x[PER];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = lane + 32 * i;
-      x[i] = s32[r * LDS + c] + b2[c];
-      sum += x[i];
-    }
-    const float mu = lss::warp_sum(sum) / C;
-    float sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) sq += (x[i] - mu) * (x[i] - mu);
-    const float rs = rsqrtf(lss::warp_sum(sq) / C + eps);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = lane + 32 * i;
-      out[(size_t)row * C + c] = (x[i] - mu) * rs * g2[c] + o2[c];
-    }
-  }
 }
 
 // ---- bfloat16: warpgroup products fed by TMA -------------------------------
@@ -399,16 +288,322 @@ __global__ void __launch_bounds__(384, 1)
 
 }  // namespace bf16k
 
+// ---- float: TF32 warpgroup products in three passes, fed by TMA ------------
+//
+// The bf16 design with float operands. What changes is shared memory: hi and
+// lo weight tiles take four times bf16's bytes per hidden column (a 64-wide
+// W1^T + W2^T chunk would be 256 KB), and a float s tile takes twice. So:
+//  - s stays in shared memory once, in float32 (128 rows, 128 KB, LN1 in
+//    place), and product 1 reads it as the register A operand: ldmatrix per
+//    k-step, split into hi and lo in registers. Keeping s as hi and lo tiles
+//    for a shared-memory A would need 256 KB; 64-row blocks would need 128
+//    KB for s and double the weights' L2 traffic (4 MB of hi/lo weights per
+//    block: 7.5 GB a flagship call at 128 rows).
+//  - the weights stream as 16 KB items, each a 64 x 32 tile of hi then lo,
+//    through a 6-stage ring: for each 64-wide hidden chunk, 8 items of
+//    W1^T[chunk, k-block] (product 1) and 8 of W2^T[64 outputs, 32 hidden]
+//    (product 2). Every wgmma is m64n64k8, none narrower.
+// The consumers keep one group of products in flight while they load and
+// split the next group's A (two k-steps, 16 registers), and take product 2
+// in two halves of 32 hidden columns, so that y (128 floats), h (32) and the
+// A registers fit in 240 without spilling. Product 2's A is the
+// GELU output straight from h's accumulator: the accumulator holds columns
+// (2t, 2t+1) of each group of 8, the TF32 A fragment wants (t, t + 4), so
+// W2^T's K axis is permuted by 0 2 4 6 1 3 5 7 in each group of 8 when it is
+// split, and A = {d0, d2, d1, d3}. GELU runs in float32 on the unsplit
+// value. y starts at s + b2 read from the float tile.
+namespace tf32k {
+
+constexpr int ROWS = 128;                 // rows per block, 64 per consumer
+constexpr int FC = 64;                    // hidden chunk
+constexpr int NCHUNK = F / FC;            // 16
+constexpr int S_KB = ROWS * 128;          // one 32-wide k-block of s (16 KB)
+constexpr int S_BYTES = (C / 32) * S_KB;  // s: 8 k-blocks of ROWS x 32 floats
+constexpr int HALF = 64 * 128;            // a 64 x 32 float tile (8 KB)
+constexpr int ITEM = 2 * HALF;            // hi, then lo
+constexpr int P1_ITEMS = C / 32;          // W1^T[chunk, k-block kb]
+constexpr int ITEMS = 2 * P1_ITEMS;       // + W2^T[64 outputs n, 32 hidden kh]: (kh, n)
+constexpr int STAGES = 6;
+constexpr int BARS = S_BYTES + STAGES * ITEM;  // mbarriers: u, full[STAGES], empty[STAGES]
+constexpr size_t SMEM = BARS + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align to 1024
+static_assert(SMEM <= 232448, "over the H100's 227 KB of shared memory a block");
+
+// Consumer side of ring item i: wait until it has arrived; its tiles.
+__device__ __forceinline__ uint32_t acquire(int i, uint32_t ring, uint32_t full) {
+  lss::mbar_wait(full + 8 * (i % STAGES), (i / STAGES) & 1);
+  return ring + (i % STAGES) * ITEM;
+}
+
+__global__ void __launch_bounds__(384, 1)
+    ffn_ln_tf32_kernel(const __grid_constant__ CUtensorMap tm_u,
+                       const __grid_constant__ CUtensorMap tm_w1s,
+                       const __grid_constant__ CUtensorMap tm_w2s, const float* __restrict__ b1,
+                       const float* __restrict__ b2, const float* __restrict__ g1,
+                       const float* __restrict__ o1, const float* __restrict__ g2,
+                       const float* __restrict__ o2, float* __restrict__ out, int rows, float eps) {
+  using namespace lss;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t ring = s_base + S_BYTES;
+  const uint32_t bar_u = s_base + BARS, bar_full = bar_u + 8, bar_empty = bar_full + 8 * STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = warp / 4;  // warpgroup
+  const int row0 = blockIdx.x * ROWS;
+
+  if (tid == 0) {
+    mbar_init(bar_u, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(bar_full + 8 * i, 1);
+      mbar_init(bar_empty + 8 * i, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (g == 2) {
+    // ---- producer: the u tile (rows past the end arrive as zeros), then the
+    // items in the order the consumers take them. w1s is (2F, C): W1^T hi
+    // over lo; w2s is (2C, F): W2^T hi over lo, K permuted.
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      mbar_expect_tx(bar_u, S_BYTES);
+      for (int kb = 0; kb < C / 32; ++kb) tma_load_2d(s_base + kb * S_KB, &tm_u, bar_u, kb * 32, row0);
+      // chunk c's items: 8 of W1^T (x = k-block, y = chunk), then 8 of W2^T
+      // (x = chunk's hidden half kh, y = outputs n)
+      for (int i = 0; i < NCHUNK * ITEMS; ++i) {
+        const int c = i / ITEMS, j = i % ITEMS, st = i % STAGES;
+        const bool p1 = j < P1_ITEMS;
+        const CUtensorMap* tm = p1 ? &tm_w1s : &tm_w2s;
+        const int x = p1 ? j * 32 : c * FC + ((j - P1_ITEMS) / 4) * 32;
+        const int y = p1 ? c * FC : ((j - P1_ITEMS) % 4) * 64;
+        const uint32_t dst = ring + st * ITEM, full = bar_full + 8 * st;
+        if (i >= STAGES) mbar_wait(bar_empty + 8 * st, ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(full, ITEM);
+        tma_load_2d(dst, tm, full, x, y);
+        tma_load_2d(dst + HALF, tm, full, x, y + (p1 ? F : C));
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<240>();
+    const int bar_id = 1 + g;  // this warpgroup's named barrier
+    mbar_wait(bar_u, 0);
+
+    // 1. s = LN1(u) in float32, in place; a warp per row, lane l holding the
+    // 8 columns 32 (l/4) + 8 (l%4) + 0..7 (two 16-byte chunks of k-block l/4).
+    {
+      const int c0 = 32 * (lane / 4) + 8 * (lane % 4);
+      float gv[8], ov[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) gv[i] = g1[c0 + i], ov[i] = o1[c0 + i];
+      for (int r = g * 64 + warp % 4; r < g * 64 + 64; r += 4) {
+        float4* p0 = reinterpret_cast<float4*>(smem + (lane / 4) * S_KB + sw128(r, 2 * (lane % 4)));
+        float4* p1 = reinterpret_cast<float4*>(smem + (lane / 4) * S_KB + sw128(r, 2 * (lane % 4) + 1));
+        const float4 a = *p0, b = *p1;
+        float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum += x[i];
+        const float mu = warp_sum(sum) / C;
+        float sq = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sq += (x[i] - mu) * (x[i] - mu);
+        const float rs = rsqrtf(warp_sum(sq) / C + eps);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = (x[i] - mu) * rs * gv[i] + ov[i];
+        *p0 = make_float4(x[0], x[1], x[2], x[3]);
+        *p1 = make_float4(x[4], x[5], x[6], x[7]);
+      }
+    }
+    warpgroup_bar(bar_id);
+
+    // 2. y = s + b2, in the accumulator layout of four n64 blocks: y[n][i]
+    // at row ra + 8 ((i/2)%2), column 64n + 8 (i/4) + cq + i%2.
+    const int ra = g * 64 + (warp % 4) * 16 + lane / 4;
+    const int cq = 2 * (lane % 4);
+    float y[4][32];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * n + 8 * j + cq;
+        const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 sv = *reinterpret_cast<const float2*>(
+              smem + (2 * n + j / 4) * S_KB + sw128(ra + 8 * half, 2 * (j % 4) + cq / 4) + (cq % 4) * 4);
+          y[n][4 * j + 2 * half] = sv.x + bb.x;
+          y[n][4 * j + 2 * half + 1] = sv.y + bb.y;
+        }
+      }
+
+    // 3. The hidden chunks. ldmatrix rows of this lane for product 1's A.
+    const int arow = g * 64 + (warp % 4) * 16 + lane % 16;
+    int it = 0;  // ring item
+    for (int c = 0; c < NCHUNK; ++c) {
+      // product 1: h (64 x FC) = s W1[:, chunk], a group of two k-steps in
+      // flight while the next group's A is loaded and split.
+      float h[32];
+      uint32_t ahi[2][8], alo[2][8];
+      fence_regs(h);
+#pragma unroll 1
+      for (int kb = 0; kb < P1_ITEMS; ++kb, ++it) {
+        const uint32_t wb = acquire(it, ring, bar_full);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            uint32_t raw[4];
+            ldmatrix_x4(raw, s_base + kb * S_KB + sw128(arow, 2 * (2 * half + q) + lane / 16));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(raw[e], ahi[half][4 * q + e], alo[half][4 * q + e]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int ks = 2 * half + q;
+            wgmma_tf32x3<64>(h, &ahi[half][4 * q], &alo[half][4 * q], desc_sw128(wb + ks * 32),
+                             desc_sw128(wb + HALF + ks * 32), (kb | half | q) != 0);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the group before this one is done
+          fence_regs(ahi[1 - half]);
+          fence_regs(alo[1 - half]);
+          if (half == 0 && kb > 0 && lane == 0) mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(h);
+      fence_regs(ahi[1]);
+      fence_regs(alo[1]);
+      if (lane == 0) mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
+
+      // product 2: y += g W2[chunk, :] in two halves of 32 hidden columns,
+      // item (kh, n): hidden 32kh.., outputs 64n... g = GELU(h + b1) in
+      // float32, split: k-step kk is columns 8kk.. of h, and its A is {d0, d2,
+      // d1, d3} against W2^T's permuted K.
+#pragma unroll
+      for (int kh = 0; kh < FC / 32; ++kh) {
+        uint32_t ghi[4][4], glo[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int kk = 4 * kh + q;
+          const float2 bb = *reinterpret_cast<const float2*>(b1 + c * FC + 8 * kk + cq);
+          const uint32_t v[4] = {__float_as_uint(gelu_erf(h[4 * kk] + bb.x)),
+                                 __float_as_uint(gelu_erf(h[4 * kk + 2] + bb.x)),
+                                 __float_as_uint(gelu_erf(h[4 * kk + 1] + bb.y)),
+                                 __float_as_uint(gelu_erf(h[4 * kk + 3] + bb.y))};
+          split_tf32(v, ghi[q], glo[q]);
+        }
+#pragma unroll
+        for (int n = 0; n < C / 64; ++n, ++it) {
+          const uint32_t wb = acquire(it, ring, bar_full);
+          wgmma_fence();
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            wgmma_tf32x3<64>(y[n], ghi[q], glo[q], desc_sw128(wb + q * 32),
+                             desc_sw128(wb + HALF + q * 32));
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (n > 0 && lane == 0) mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
+        }
+        // this half's A registers are rewritten next: wait its products out
+        wgmma_wait<0>();
+#pragma unroll
+        for (int n = 0; n < 4; ++n) fence_regs(y[n]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) fence_regs(ghi[q]), fence_regs(glo[q]);
+        if (lane == 0) mbar_arrive(bar_empty + 8 * ((it - 1) % STAGES));
+      }
+    }
+
+    // 4. LN2 from the accumulator: a row's 256 values lie in the 4 lanes of a quad.
+    float mu[2], rs[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float sm = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sm += y[n][4 * j + 2 * half] + y[n][4 * j + 2 * half + 1];
+      sm += __shfl_xor_sync(0xffffffffu, sm, 1);
+      sm += __shfl_xor_sync(0xffffffffu, sm, 2);
+      mu[half] = sm / C;
+      float q = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float d0 = y[n][4 * j + 2 * half] - mu[half], d1 = y[n][4 * j + 2 * half + 1] - mu[half];
+          q += d0 * d0 + d1 * d1;
+        }
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      rs[half] = rsqrtf(q / C + eps);
+    }
+    // Stage the rows in this warpgroup's own rows of s (only it reads them),
+    // then store them with 16-byte writes.
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * n + 8 * j + cq;
+        const float2 gg = *reinterpret_cast<const float2*>(g2 + col);
+        const float2 oo = *reinterpret_cast<const float2*>(o2 + col);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<float2*>(smem + (2 * n + j / 4) * S_KB +
+                                     sw128(ra + 8 * half, 2 * (j % 4) + cq / 4) + (cq % 4) * 4) =
+              make_float2((y[n][4 * j + 2 * half] - mu[half]) * rs[half] * gg.x + oo.x,
+                          (y[n][4 * j + 2 * half + 1] - mu[half]) * rs[half] * gg.y + oo.y);
+      }
+    warpgroup_bar(bar_id);
+    for (int e = tid % 128; e < 64 * 64; e += 128) {
+      const int r = g * 64 + e / 64, kc = e % 64;
+      const int row = row0 + r;
+      if (row < rows)
+        *reinterpret_cast<float4*>(out + (size_t)row * C + kc * 4) =
+            *reinterpret_cast<const float4*>(smem + (kc / 8) * S_KB + sw128(r, kc % 8));
+    }
+  }
+}
+
+}  // namespace tf32k
+
+// The weights' hi/lo split (one launch for both): w1 (C, F) -> w1s (2, F, C),
+// W1^T's hi over its lo; w2 (F, C) -> w2s (2, C, F), W2^T's with K permuted.
+int split_f32(const void* w1, const void* w2, void* w1s, void* w2s, void* stream) {
+  float* a = (float*)w1s;
+  float* b = (float*)w2s;
+  return (int)lss::split_weights(lss::SplitJob{(const float*)w1, a, a + F * C, 1, C, F, 0},
+                                 lss::SplitJob{(const float*)w2, b, b + C * F, 1, F, C, 1},
+                                 (cudaStream_t)stream);
+}
+
+// u (rows, C), biases and norm parameters float; w1s, w2s the split of
+// split_f32, filled here first.
 int launch_f32(const void* u, const void* w1, const void* b1, const void* w2, const void* b2,
-               const void* g1, const void* o1, const void* g2, const void* o2, void* out,
-               int rows, float eps, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(ffn_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_F32);
+               const void* g1, const void* o1, const void* g2, const void* o2, void* w1s,
+               void* w2s, void* out, int rows, float eps, void* stream) {
+  int code = split_f32(w1, w2, w1s, w2s, stream);
+  if (code != 0) return code;
+  constexpr auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const cuuint64_t du[2] = {C, (cuuint64_t)rows}, d1[2] = {C, 2 * F}, d2[2] = {F, 2 * C};
+  const cuuint32_t bu[2] = {32, tf32k::ROWS}, bw[2] = {32, 64};
+  CUtensorMap tm_u, tm_w1s, tm_w2s;
+  cudaError_t e = lss::tensor_map(&tm_u, u, 2, du, bu, f32);
+  if (e == cudaSuccess) e = lss::tensor_map(&tm_w1s, w1s, 2, d1, bw, f32);
+  if (e == cudaSuccess) e = lss::tensor_map(&tm_w2s, w2s, 2, d2, bw, f32);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(tf32k::ffn_ln_tf32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tf32k::SMEM);
   if (e != cudaSuccess) return (int)e;
-  ffn_ln_kernel<<<(rows + M - 1) / M, lss::kThreads, SMEM_F32, (cudaStream_t)stream>>>(
-      (const float*)u, (const float*)w1, (const float*)b1, (const float*)w2, (const float*)b2,
-      (const float*)g1, (const float*)o1, (const float*)g2, (const float*)o2, (float*)out, rows,
-      eps);
+  tf32k::ffn_ln_tf32_kernel<<<(rows + tf32k::ROWS - 1) / tf32k::ROWS, 384, tf32k::SMEM,
+                              (cudaStream_t)stream>>>(
+      tm_u, tm_w1s, tm_w2s, (const float*)b1, (const float*)b2, (const float*)g1,
+      (const float*)o1, (const float*)g2, (const float*)o2, (float*)out, rows, eps);
   return (int)cudaGetLastError();
 }
 
@@ -438,10 +633,19 @@ int launch_bf16(const void* u, const void* w1t, const void* b1, const void* w2t,
 
 }  // namespace
 
+// float32: w1 (C, F), w2 (F, C) as given; w1s (2, F, C) and w2s (2, C, F) are
+// scratch for their split.
 extern "C" int ffn_ln_f32(const void* u, const void* w1, const void* b1, const void* w2,
                           const void* b2, const void* g1, const void* o1, const void* g2,
-                          const void* o2, void* out, int rows, float eps, void* stream) {
-  return launch_f32(u, w1, b1, w2, b2, g1, o1, g2, o2, out, rows, eps, stream);
+                          const void* o2, void* w1s, void* w2s, void* out, int rows, float eps,
+                          void* stream) {
+  return launch_f32(u, w1, b1, w2, b2, g1, o1, g2, o2, w1s, w2s, out, rows, eps, stream);
+}
+
+// The split alone, for the tests.
+extern "C" int ffn_ln_split_f32(const void* w1, const void* w2, void* w1s, void* w2s,
+                                void* stream) {
+  return split_f32(w1, w2, w1s, w2s, stream);
 }
 
 extern "C" int ffn_ln_bf16(const void* u, const void* w1, const void* b1, const void* w2,

@@ -1,7 +1,7 @@
-// Hopper building blocks of the bfloat16 tile kernels: TMA copies into
-// shared memory and their tensor maps, mbarriers, ldmatrix, register
-// reallocation, and the warpgroup matrix product (wgmma) with its
-// shared-memory descriptor and its fences.
+// Hopper building blocks of the tile kernels: TMA copies into shared memory
+// and their tensor maps, mbarriers, ldmatrix, register reallocation, and the
+// warpgroup matrix product (wgmma) with its shared-memory descriptor and its
+// fences, in bfloat16 and in TF32 (the float32 kernels, three passes).
 //
 // Shared-memory operands of wgmma are K-major tiles of 64 bf16 (128 bytes) per
 // row in the 128-byte swizzle: the 16-byte chunk c of row r is stored at chunk
@@ -16,6 +16,15 @@
 // operand (4 x 32 bits) use the mma.sync m16n8k16 fragment layout, warp w of
 // the warpgroup holding rows 16w..16w+15. Accumulator element i of lane l lies
 // at row l/4 + 8*((i/2)%2) and column 8*(i/4) + 2*(l%4) + i%2.
+//
+// TF32 (m64nNk8): a 128-byte row holds 32 floats, so a k-step of 8 is the same
+// 32-byte move and the same descriptor as bf16's k16. TF32 wgmma takes both
+// operands K-major only (no transpose bits). Its register A operand is the
+// mma.sync m16n8k8 tf32 fragment: a0 (row l/4, col l%4), a1 (row l/4 + 8,
+// col l%4), a2 (row l/4, col l%4 + 4), a3 (row l/4 + 8, col l%4 + 4). The
+// ldmatrix.x4 that reads a bf16 A k-step (rows l%16, chunk 2k + l/16) gives
+// exactly that from a float tile: thread l gets 32-bit word (l/4, l%4) of
+// each 8 x 4-float matrix. The accumulator layout is bf16's.
 #pragma once
 
 #include <cuda.h>
@@ -217,6 +226,112 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// ---- TF32 in three passes -----------------------------------------------------
+//
+// A float x is hi + lo: hi = x rounded to TF32 (10-bit mantissa) to nearest,
+// ties away from zero, as cvt.rna.tf32.f32 rounds: the bit pattern plus 0x1000
+// with its low 13 bits cleared; lo = x - hi, exact in float32. The tensor
+// cores read a TF32 operand's top 19 bits, so lo is truncated where it is
+// read. a b ~ a_hi b_hi + a_lo b_hi + a_hi b_lo (the dropped a_lo b_lo is
+// below 2^-22 |a b|): as close as a float32 product, at three TF32 passes.
+// `ops/_tf32.py::split_tf32` is the same split, bit for bit.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N], uint32_t (&hi)[N], uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// D (64 x N, float) += A (64 x 8, tf32, registers) B (8 x N, tf32, K-major
+// shared memory through `desc_b`), issued by a whole warpgroup; scale_d == 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t* a, uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const uint32_t* a, uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d += a b in three TF32 passes, a as hi/lo registers, b as hi/lo tiles.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32x3(float (&d)[N / 2], const uint32_t* a_hi, const uint32_t* a_lo,
+                                             uint64_t b_hi, uint64_t b_lo, int scale_d = 1) {
+  if constexpr (N == 64) {
+    wgmma_tf32_n64(d, a_hi, b_hi, scale_d);
+    wgmma_tf32_n64(d, a_lo, b_hi);
+    wgmma_tf32_n64(d, a_hi, b_lo);
+  } else {
+    static_assert(N == 128, "TF32 wgmma is written out for N = 64 and 128");
+    wgmma_tf32_n128(d, a_hi, b_hi, scale_d);
+    wgmma_tf32_n128(d, a_lo, b_hi);
+    wgmma_tf32_n128(d, a_hi, b_lo);
+  }
+}
+
+// The weights' split, once per call: job j turns src (t, k, n) float into hi
+// and lo (t, n, k), K-major, each element at slot s of its group of 8 along k
+// taking k-index 8 (s / 8) + k8[s % 8]: with `permute_k8`, the order
+// 0 2 4 6 1 3 5 7 that matches a float accumulator's column pairs to the TF32
+// A fragment (`ops/_tf32.py::K8_ORDER`), else the identity.
+struct SplitJob {
+  const float* src;
+  float* hi;
+  float* lo;
+  int t, k, n, permute_k8;
+};
+
+__global__ void __launch_bounds__(256) split_tf32_kernel(const SplitJob j0, const SplitJob j1) {
+  const SplitJob j = blockIdx.y == 0 ? j0 : j1;
+  const long total = (long)j.t * j.n * j.k;
+  for (long e = blockIdx.x * 256L + threadIdx.x; e < total; e += gridDim.x * 256L) {
+    const int s = (int)(e % j.k);
+    const long tn = e / j.k;
+    const int k = j.permute_k8 ? (s & ~7) | ((s & 3) << 1) | ((s >> 2) & 1) : s;
+    const float x = j.src[((tn / j.n) * j.k + k) * j.n + tn % j.n];
+    uint32_t hi, lo;
+    split_tf32(__float_as_uint(x), hi, lo);
+    j.hi[e] = __uint_as_float(hi);
+    j.lo[e] = __uint_as_float(lo);
+  }
+}
+
+inline cudaError_t split_weights(const SplitJob& j0, const SplitJob& j1, cudaStream_t stream) {
+  split_tf32_kernel<<<dim3(256, 2), 256, 0, stream>>>(j0, j1);
+  return cudaGetLastError();
+}
+
 // ---- host: TMA tensor maps ---------------------------------------------------
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (the kernel
@@ -226,12 +341,14 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A dense bf16 tensor of `rank` dimensions, innermost first (`dims`), read in
-// boxes of `box` whose innermost extent is 64 elements (128 bytes), written to
-// shared memory in the 128-byte swizzle (`sw128`). Elements outside the tensor
-// (also at negative coordinates) arrive as zeros.
+// A dense bf16 (or float32) tensor of `rank` dimensions, innermost first
+// (`dims`), read in boxes of `box` whose innermost extent is 128 bytes (64
+// bf16 or 32 floats), written to shared memory in the 128-byte swizzle
+// (`sw128`). Elements outside the tensor (also at negative coordinates)
+// arrive as zeros.
 inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rank,
-                              const cuuint64_t* dims, const cuuint32_t* box) {
+                              const cuuint64_t* dims, const cuuint32_t* box,
+                              CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -242,10 +359,10 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rank,
     encode = (EncodeTiled)fn;
   }
   cuuint64_t strides[4];
-  cuuint64_t step = sizeof(__nv_bfloat16);
+  cuuint64_t step = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? sizeof(float) : sizeof(__nv_bfloat16);
   for (int i = 0; i + 1 < rank; ++i) strides[i] = step *= dims[i];
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+  CUresult r = encode(map, dtype, rank, const_cast<void*>(ptr), dims,
                       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -3,9 +3,12 @@ ragged shapes that the flagship's (all multiples of the kernels' tiles)
 never reach: partial query, row and pixel tiles, channel counts that are
 no multiple of a warp, non-square maps, and the deformable kernels at the
 edges of their query tiles and lane groups (and their refusal of a dh that
-is no multiple of 8). Plus the whole model in float32 on
-the card against the CPU at a 30x30 BEV grid, in eval and for one train
-step with its gradients.
+is no multiple of 8). The float32 FFN tail and seg head, which run in three
+TF32 passes, also at inputs of magnitude ~1e3 with weights whose TF32 lo
+parts are near their largest, where one pass would miss the tolerance, and
+their weights' split bit for bit against `ops/_tf32.py`. Plus the whole
+model in float32 on the card against the CPU at a 30x30 BEV grid, in eval
+and for one train step with its gradients.
 
 Marked `cuda`; each test skips without a card. On the card, without JAX
 (this file imports none, and the suite's conftest imports JAX):
@@ -26,6 +29,7 @@ from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
 from lss2_multimodal_nu_tpu_torch.ops import ffn
 from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
 from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
+from lss2_multimodal_nu_tpu_torch.ops._tf32 import split_tf32
 from lss2_multimodal_nu_tpu_torch.train import state as ts
 from lss2_multimodal_nu_tpu_torch.train import steps as tsteps
 
@@ -246,12 +250,19 @@ def test_lift_splat_ragged(dev, dtype):
            1e-5 if dtype == torch.float32 else 2 ** -7, f)
 
 
+# A full wave of both FFN kernels' 128-row blocks: one per SM of an H100.
+WAVE = 132 * 128
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,n", [(2, 77), (1, 1), (1, 127), (1, 129), (1, 132 * 128 + 77)])
+@pytest.mark.parametrize("b,n", [(2, 77), (1, 1), (1, 63), (1, 64), (1, 65), (1, 127), (1, 128),
+                                 (1, 129), (1, WAVE - 1), (1, WAVE), (1, WAVE + 1),
+                                 (1, WAVE + 77)])
 def test_ffn_ragged(dev, dtype, b, n):
-    """Row counts off the 64-row tiles of the float32 kernel and the 128-row
-    blocks (64-row warpgroup halves) of the bfloat16 one: 154 rows in two
-    batches, 1, 127, 129, and more blocks than the card has SMs."""
+    """Row counts at the edges of both kernels' 128-row blocks and their
+    64-row warpgroup halves: 154 rows in two batches, 1, 63, 64, 65, 127,
+    128, 129, a full wave of blocks and one row either side, and more blocks
+    than the card has SMs."""
     _, g, _ = _rng_tensors(dev, 3)
     u = g(b, n, 256).to(dtype)
     args = (g(256, 1024, scale=0.05), g(1024, scale=0.1), g(1024, 256, scale=0.05),
@@ -265,12 +276,14 @@ def test_ffn_ragged(dev, dtype, b, n):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nout", [3, 4])
-@pytest.mark.parametrize("b,h,w", [(2, 9, 13), (2, 1, 1), (1, 17, 203), (1, 200, 200)])
+@pytest.mark.parametrize("b,h,w", [(2, 9, 13), (2, 1, 1), (1, 17, 203), (1, 200, 200),
+                                   (1, 16, 16), (1, 15, 17), (1, 33, 31)])
 def test_seg_head_ragged(dev, dtype, nout, b, h, w):
-    """Maps off the pixel tiles (64 pixels in float32, 16 x 16 in bfloat16):
-    9 x 13 (every row near a border), a single pixel (every tap but the
-    centre reads the padding), 17 x 203 (partial tiles both ways) and the
-    flagship's 200 x 200 at B=1; 3 and 4 output classes; both launches."""
+    """Maps at and off the 16 x 16 pixel tiles of both dtypes: 9 x 13 (every
+    row near a border), a single pixel (every tap but the centre reads the
+    padding), 17 x 203 (partial tiles both ways), the flagship's 200 x 200
+    at B=1, one whole tile, 15 x 17 (one short, one over) and 33 x 31 (a
+    third tile of one row); 3 and 4 output classes; both launches."""
     _, g, _ = _rng_tensors(dev, 4)
     x = g(b, h * w, 256, scale=0.5).to(dtype)
     wts = (g(3, 3, 256, 128, scale=0.03), g(128, scale=0.1), g(3, 3, 128, 64, scale=0.04),
@@ -280,6 +293,78 @@ def test_seg_head_ragged(dev, dtype, nout, b, h, w):
     _check(lambda: f(x, *wts, h, w), lambda: sh.fused_seg_head_plain(x, *wts, h, w),
            1e-4 if dtype == torch.float32 else 2 ** -6, f)
     assert f.launches == before + 2
+
+
+def _low_bits(w):
+    """w rounded to TF32 plus 0.45 of a TF32 ulp away from zero: a lo part
+    near its largest, of the sign of w, which only the lo passes see."""
+    hi, _ = split_tf32(w)
+    ulp = (hi.view(torch.int32) & 0x7F800000).view(torch.float32) * 2.0 ** -10
+    return hi + 0.45 * ulp * torch.sign(hi)
+
+
+def ffn_low_bits_inputs(dev):
+    """The float32 FFN tail's hard case: 600 rows (two batches of 300) of
+    magnitude ~1e3, both weights with large lo parts; the smoke's scales."""
+    _, g, _ = _rng_tensors(dev, 9)
+    u = g(2, 300, 256, scale=1e3)
+    args = [g(256, 1024, scale=0.05), g(1024, scale=0.1), g(1024, 256, scale=0.05),
+            g(256, scale=0.1), 1 + g(256, scale=0.1), g(256, scale=0.1), 1 + g(256, scale=0.1),
+            g(256, scale=0.1)]
+    args[0], args[2] = _low_bits(args[0]), _low_bits(args[2])
+    return u, args
+
+
+def seg_head_low_bits_inputs(dev):
+    """The float32 seg head's hard case: a 19 x 21 map of magnitude ~1e3,
+    both conv kernels with large lo parts."""
+    _, g, _ = _rng_tensors(dev, 10)
+    x = g(1, 19 * 21, 256, scale=1e3)
+    wts = [g(3, 3, 256, 128, scale=0.03), g(128, scale=0.1), g(3, 3, 128, 64, scale=0.04),
+           g(64, scale=0.1), g(64, 4, scale=0.1), g(4, scale=0.1)]
+    wts[0], wts[2] = _low_bits(wts[0]), _low_bits(wts[2])
+    return x, wts, (19, 21)
+
+
+def test_ffn_float32_low_bits(dev):
+    """The float32 FFN tail where one TF32 pass is not enough: at these
+    inputs a kernel without the lo passes misses 1e-4 (by 3.9x in the CPU
+    emulation of `tests/test_torch_tf32x3.py`); the three-pass kernel
+    meets it."""
+    u, args = ffn_low_bits_inputs(dev)
+    f = ffn.fused_ffn_ln
+    _check(lambda: f(u, *args, eps=1e-6, compute_dtype=torch.float32),
+           lambda: ffn.fused_ffn_ln_plain(u, *args, eps=1e-6, compute_dtype=torch.float32),
+           1e-4, f)
+
+
+def test_seg_head_float32_low_bits(dev):
+    """The float32 seg head where one TF32 pass is not enough: at these
+    inputs a kernel without the lo passes misses 1e-4 (by 6.5x in the CPU
+    emulation of `tests/test_torch_tf32x3.py`); the three-pass kernels
+    meet it."""
+    x, wts, (h, w) = seg_head_low_bits_inputs(dev)
+    f = sh.fused_seg_head
+    _check(lambda: f(x, *wts, h, w), lambda: sh.fused_seg_head_plain(x, *wts, h, w), 1e-4, f)
+
+
+@pytest.mark.parametrize("kernel", ["ffn_ln", "seg_head"])
+def test_tf32_split_is_bitwise(dev, kernel):
+    """The card's split of the weights (the kernel that each float32 call
+    runs first) equals `ops/_tf32.py`'s bit for bit: hi, lo, the transposes
+    and W2^T's K permutation; on values of every magnitude and sign."""
+    rng, g, _ = _rng_tensors(dev, 11)
+    mags = lambda *s: g(*s) * torch.from_numpy(
+        10.0 ** rng.uniform(-30, 30, size=s)).float().to(dev)
+    if kernel == "ffn_ln":
+        ws = (mags(256, 1024), mags(1024, 256))
+        got, want = ffn.tf32_split_weights(*ws), ffn.tf32_split_weights_plain(*ws)
+    else:
+        ws = (mags(3, 3, 256, 128), mags(3, 3, 128, 64))
+        got, want = sh.tf32_split_weights(*ws), sh.tf32_split_weights_plain(*ws)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _small_models(dev, moved=False):
