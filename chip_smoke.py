@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. setup: versions, the card's name and power limit, TF32 off, build the
+  1. setup: versions, the card's name and power limit, the precision flags
+     each phase runs under, build the
      CUDA kernels of `lss2_multimodal_nu_tpu_torch/csrc/` with nvcc (timed),
      each kernel's registers and spills (ptxas) and the TF32 tensor-core
      instructions (HGMMA) in the libraries (cuobjdump);
@@ -15,17 +16,23 @@ Phases (any failure exits non-zero):
      SIMT float32 bound); the float32 weights' TF32 split against
      `ops/_tf32.py` bit for bit; the deformable sampling at uniform
      locations and at the main path's local ones, beside its composite
-     yardstick (`grid_sample` and a weighted sum, two PyTorch calls);
-  2b. the deformable-sampling backward kernel against its plain version at
-     the train-v2 shapes (B=8), in float32 and bfloat16, at both kinds of
-     locations, each of its four outputs checked, beside autograd through
-     the composite yardstick; the lift-splat backward (PyTorch ops) timed;
+     yardstick (`grid_sample` and a weighted sum, two PyTorch calls); the
+     lift-splat wrapper with its index preparation, which is also timed
+     alone, and its output repeated bit for bit;
+  2b. the two backward kernels against their plain versions at the
+     train-v2 shapes (B=8), in float32 and bfloat16, every output checked:
+     the deformable sampling's at both kinds of locations, beside autograd
+     through the composite yardstick; lift-splat's (the plain version is
+     its composite), repeated bit for bit;
   3. the flagship eval forward (VoVNetBEVTransformer, vovnet39, LSS v2, V3,
      6 cameras at 128x352 into a 200x200 BEV, B=6, bfloat16) through
      `build_model`, with every kernel's launch count checked, then timed;
+     one forward must make no host sync (profiler);
   3b. the same in float32, the models' and the JAX CLI's default precision;
   4. the same weights and inputs in float32 at B=1 on the card (kernels)
-     against the CPU (plain versions);
+     against the CPU (plain versions), under torch's defaults and again with
+     float32 matrix products at "high", each bit for bit equal to the card's
+     forward with TF32 turned off by the caller (the forward pins it);
   5. the flagship train step (train-v2: B=8, lr 1e-4, wd 1e-8, clip 10, the
      warmup-cosine schedule, bfloat16) through `train/steps.py::train_step`,
      with every kernel's launch count checked, 5 steps on one batch that
@@ -33,11 +40,18 @@ Phases (any failure exits non-zero):
   6. one float32 train step at B=1, dropout off, on the card against the
      CPU: loss, grad_norm and the gradients upstream of both sampling
      kernels, printed beside the card's own spread from weights moved by
-     1e-7, the yardstick of their limits.
+     1e-7, the yardstick of their limits; and the card's step under torch's
+     defaults and under matmul "high" against its step with TF32 turned off
+     by the caller (the step pins it): the loss bit for bit, the gradients
+     within PIN_GRAD_TOL.
 
-The last lines are the card (nvidia-smi), one JSON object with every
-kernel's numbers (the deformable kernels' at uniform locations), and `{"ok": true, "device": {...}}`. Needs one CUDA card;
-imports no JAX.
+Phases 2 and 2b run kernels, plain versions and yardsticks in full
+float32 (`ops/_precision.py::full_float32`); phases 3 to 6 run under
+torch's default flags, as a user's program would, and the port's entry
+points pin full float32 themselves. The last lines are the card
+(nvidia-smi), one JSON object with every kernel's numbers (the deformable
+kernels' at uniform locations), and `{"ok": true, "device": {...}}`. Needs
+one CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -74,6 +88,14 @@ TRAIN_B, STEPS_PER_EPOCH = 8, 1
 # sampling) moved by at most 6.4e-4 in the control: GRAD_TOL_LINEAR 1e-2. A
 # gradient that is cut off is off by 1.
 GRAD_TOL, GRAD_NORM_TOL, GRAD_TOL_LINEAR = 0.2, 0.05, 1e-2
+# Phase 6's card step under torch's defaults, and again with matmul "high",
+# against the same step with TF32 turned off by the caller (the step pins full
+# float32 itself, its backward too): the loss bit for bit, and each leaf's
+# gradient within PIN_GRAD_TOL in norm. Pinned, they differed by at most
+# 1.6e-6 (the deformable backward's atomics add in varying order); with the
+# pin taken out of the forward and the step, by 0.47 on the stem conv
+# (scripts/port_precision.py, NVIDIA H100 80GB HBM3, 700.00 W).
+PIN_GRAD_TOL = 1e-4
 
 
 def ptxas_lines():
@@ -193,7 +215,10 @@ def time_ms(fn, reps=20, warmup=3):
 
 
 # substrings of the port's own kernel names, as the profiler lists them
-PORT_KERNEL_NAMES = ("deform_sample", "lift_splat", "ffn_ln", "conv3x3", "split_tf32")
+PORT_KERNEL_NAMES = ("deform_sample", "lift_splat", "keys_kernel", "rowptr_kernel",
+                     "DeviceRadixSortOnesweep", "ffn_ln", "conv3x3", "split_tf32")
+# host-side CUDA calls that make the host wait for the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaMemcpy", "cudaDeviceSynchronize")
 
 
 def device_profile(fn, top=12):
@@ -201,9 +226,10 @@ def device_profile(fn, top=12):
     ms, the length of the union of the kernels' and copies' intervals (cuDNN
     may run kernels side by side, so their sum can exceed the call), and by
     kernel name the busiest ones and every kernel of the port's own, as
-    (name, summed ms, count). Ranges that annotate the device timeline
-    (`Optimizer.step#Adam.step`) are not work of their own and are left
-    out."""
+    (name, summed ms, count); and the calls of `SYNC_CALLS` that `fn` made
+    (the profile's own closing `cudaDeviceSynchronize` not counted). Ranges
+    that annotate the device timeline (`Optimizer.step#Adam.step`) are not
+    work of their own and are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -219,13 +245,17 @@ def device_profile(fn, top=12):
     rows = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages() if work(e)), key=lambda r: -r[1])
     shown = [r for i, r in enumerate(rows) if i < top or any(k in r[0] for k in PORT_KERNEL_NAMES)]
-    return busy / 1e3, sum(r[1] for r in rows), shown
+    syncs = {k: sum(1 for e in prof.events() if e.name == k) for k in SYNC_CALLS}
+    syncs["cudaDeviceSynchronize"] -= 1
+    return busy / 1e3, sum(r[1] for r in rows), shown, syncs
 
 
 def lift_inputs(dev, b, seed=7):
     """Lift-splat operands at batch b: the real frustum geometry of the
-    flagship inputs, softmax depth weights, feature rows from a numpy seed.
-    Returns (feat (B, R, 128) float32, depth, seg, fidx, n_voxels, n_valid)."""
+    flagship inputs, softmax depth weights, feature rows from a numpy seed,
+    and the frustum's constant fidx with the CSR over it that the main path
+    caches. Returns (feat (B, R, 128) float32, depth, seg, fidx, n_voxels,
+    n_valid, fidx_csr)."""
     import numpy as np
     import torch
 
@@ -247,10 +277,19 @@ def lift_inputs(dev, b, seed=7):
     seg = torch.where(valid_f, (idx_f[..., 2] * GRID + idx_f[..., 0]) * GRID + idx_f[..., 1], 0)
     logits = torch.from_numpy(rng.normal(size=(b, NCAM, d, fh, fw)).astype(np.float32)).to(dev)
     depth = torch.where(valid_f, torch.softmax(logits, 2).reshape(b, p), 0.0)
-    fidx = torch.as_tensor(ls._feature_rows(NCAM, d, fh, fw), device=dev)[None].expand(b, p)
+    fidx, csr = ls._feature_rows_on(NCAM, d, fh, fw, b, dev)
     feat = torch.from_numpy(rng.normal(size=(b, NCAM * fh * fw, 128)).astype(np.float32)).to(dev)
-    return (feat, depth, seg.to(torch.int32), fidx.contiguous(), GRID * GRID,
-            int(valid_f.sum()))
+    return (feat, depth, seg.to(torch.int32), fidx, GRID * GRID, int(valid_f.sum()), csr)
+
+
+def rows_read(idx, n_rows, live=None):
+    """How many distinct rows (b, idx[b, p]) the points read, over the
+    points where `live` (every point where it is None): the bytes a gather
+    through idx must move are these rows, each read once."""
+    import torch
+
+    keys = idx.long() + torch.arange(idx.shape[0], device=idx.device)[:, None] * n_rows
+    return int(torch.unique(keys if live is None else keys[live]).numel())
 
 
 def deform_inputs(dev, bh, seed=7, locations="uniform"):
@@ -333,9 +372,10 @@ def kernel_cases(dev):
 
     # 1. deformable sampling at both kinds of locations, 2. lift-splat
     deform = {kind: deform_inputs(dev, bh, locations=kind) for kind in ("uniform", "local")}
-    feat, depth, seg, fidx, _, n_valid = lift_inputs(dev, B)
+    feat, depth, seg, fidx, _, n_valid, _ = lift_inputs(dev, B)
     p = depth.shape[1]
-    fh_fw = feat.shape[1] // NCAM
+    # the feature rows that live points read (the forward skips depth-0 points)
+    feat_rows = rows_read(fidx, feat.shape[1], depth != 0)
     # 4. FFN tail and 5. seg head
     tok = g(B, n, 256)
     fw_ = dict(w1=g(256, 1024, scale=0.05), b1=g(1024, scale=0.1), w2=g(1024, 256, scale=0.05),
@@ -372,10 +412,11 @@ def kernel_cases(dev):
             plain=lambda fd=fd: ls.fused_lift_splat_plain(fd, depth, seg, fidx, n),
             library=lambda lifted=lifted, segflat=segflat, acc=acc: acc.zero_().index_add_(
                 0, segflat, lifted),
-            bytes=B * NCAM * fh_fw * 128 * es + 3 * B * p * 4 + B * n * 128 * es,
+            bytes=feat_rows * 128 * es + 3 * B * p * 4 + B * n * 128 * es,
             ops=2 * n_valid * 128, op_dtype="float32",
-            # float atomics add in a varying order
+            # the kernel sums in sorted order, the plain version in index_add_'s
             rel_tol=2 ** -7 if bf else 1e-5,
+            prep=lambda: ls.sort_points(seg, depth, n), repeat=True,
         ))
         td = tok.to(dt)
         args = (fw_["w1"], fw_["b1"], fw_["w2"], fw_["b2"], fw_["s1"], fw_["o1"], fw_["s2"], fw_["o2"])
@@ -471,11 +512,51 @@ def backward_cases(dev):
     return cases
 
 
+def lift_backward_cases(dev):
+    """The lift-splat backward at the train-v2 shapes (B=8, the flagship's
+    frustum, the cached CSR over its constant fidx, as the main path calls
+    it), in float32 and bfloat16: (dtype, kernel_fn, plain_fn, bytes, ops,
+    tolerances per output). Bytes: the rows of g that the points read
+    (g[b, seg[p]] for every point, row 0 for the depth-0 ones: a few hundred
+    of each batch element's 40000), feat read and dfeat written, depth, seg
+    and fidx read and the float32 ddepth written, each once. Ops: a dot of
+    128 for every point and an FMA of 128 for each point of non-zero depth,
+    in float32."""
+    import numpy as np
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
+
+    feat, depth, seg, fidx, n_vox, n_valid, csr = lift_inputs(dev, TRAIN_B, seed=9)
+    g = torch.from_numpy(np.random.default_rng(14).normal(size=(TRAIN_B, n_vox, 128))
+                         .astype(np.float32)).to(dev)
+    b, p = depth.shape
+    r = feat.shape[1]
+    g_rows = rows_read(seg, n_vox)
+    print(f"lift-splat backward at B={b}: the points read {g_rows} of g's {b * n_vox} rows")
+    cases = []
+    for dt, name_dt in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        es = 4 if dt == torch.float32 else 2
+        a = (feat.to(dt), depth, seg, fidx, g.to(dt))
+        cases.append(dict(
+            dtype=name_dt,
+            kernel=lambda a=a: ls.fused_lift_splat_backward(*a, _fidx_csr=csr),
+            plain=lambda a=a: ls.fused_lift_splat_backward_plain(*a),
+            bytes=g_rows * 128 * es + 2 * b * r * 128 * es + 3 * b * p * 4 + b * p * 4,
+            ops=2 * 128 * (b * p + n_valid),
+            # dfeat: sums of up to 41 points in another order, rounded once
+            # to bf16 at the end (one ulp, 2^-7, where the order flips the
+            # rounding); ddepth: a float32 dot of 128 in another order
+            tol={"dfeat": 2 ** -7 if dt == torch.bfloat16 else 1e-5, "ddepth": 1e-5},
+        ))
+    return cases
+
+
 # kernel -> (source, the TPU kernel it replaces, launches per eval forward,
 # launches per train step). The `kernels` line's `launches` is the count in
 # the first path that runs the kernel: the eval forward for the four forward
 # kernels (its meaning since they were ported), the train step for the
-# backward, which only training runs.
+# backwards, which only training runs.
 KERNELS = {
     "deformable_sample": ("lss2_multimodal_nu_tpu_torch/csrc/deformable_sample.cu",
                           "lss2_multimodal_nu_tpu/ops/deformable_pallas.py:341", 1, 1),
@@ -484,6 +565,9 @@ KERNELS = {
         "lss2_multimodal_nu_tpu/ops/deformable_pallas.py:484", 0, 1),
     "lift_splat": ("lss2_multimodal_nu_tpu_torch/csrc/lift_splat.cu",
                    "lss2_multimodal_nu_tpu/ops/lift_splat_pallas.py:50", 1, 1),
+    # the backward of kernel 3, which the JAX package leaves to XLA
+    "lift_splat_backward": ("lss2_multimodal_nu_tpu_torch/csrc/lift_splat_backward.cu",
+                            "lss2_multimodal_nu_tpu/ops/lift_splat.py:97", 0, 1),
     "ffn_ln": ("lss2_multimodal_nu_tpu_torch/csrc/ffn_ln.cu",
                "lss2_multimodal_nu_tpu/ops/ffn_pallas.py:87", 1, 0),
     "seg_head": ("lss2_multimodal_nu_tpu_torch/csrc/seg_head.cu",
@@ -561,6 +645,17 @@ def grad_diffs(got, want, names):
     return out
 
 
+def upstream_leaves(model):
+    """Phase 6's leaves: those upstream of both sampling kernels, which a
+    cut-off autograd would zero (the camera encoder's head, the depth net,
+    the stem conv, the deformable attention's projections)."""
+    return [n for n, _ in model.named_parameters()
+            if n.split(".")[0] in ("cam_encode", "depth_net")
+            or n in ("backbone.backbone.stem.0.conv.weight",
+                     *(f"bev_encoder.transformer.encoder.self_attn.{m}.weight"
+                       for m in ("sampling_offsets", "attention_weights", "value_proj")))]
+
+
 def eval_forward(dev, dtype, phase, wrappers):
     """Phase 3 (bfloat16) or 3b (float32): the flagship eval forward at B=6
     through `build_model`: every kernel's launches (counts set to 0 just
@@ -568,11 +663,18 @@ def eval_forward(dev, dtype, phase, wrappers):
     shapes and finiteness, the host-clock median of 10 forwards, the stages
     (CUDA events), device busy time, idle share and the busiest kernels
     (torch.profiler). Returns (launches, failure message or None, the
-    numbers: forward ms, busy ms, idle share, stages)."""
+    numbers: forward ms, busy ms, idle share, stages, host syncs)."""
     import torch
+
+    import contextlib
 
     from lss2_multimodal_nu_tpu_torch.config import Config, ModelConfig
     from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+
+    try:
+        from lss2_multimodal_nu_tpu_torch.ops._precision import full_float32
+    except ImportError:  # an older checkout (scripts/port_eval_forward.py --root) sets the flags
+        full_float32 = contextlib.nullcontext
 
     short = {"bfloat16": "bf16", "float32": "f32"}[dtype]
     cfg = Config(model=ModelConfig(family="vovnet_transformer", vovnet_type="vovnet39",
@@ -608,17 +710,19 @@ def eval_forward(dev, dtype, phase, wrappers):
             fwd.append((time.perf_counter() - t1) * 1e3)
         fwd.sort()
         fwd_ms = fwd[len(fwd) // 2]
-        # stage breakdown through the model's own stage methods
-        c3, c4 = model.encode_cameras(inputs[0])
-        bev = model.lift_to_bev(c3, c4, *inputs[1:])
-        _, refined = model.bev_encoder(bev)
-        stages = {
-            "encode_cameras": time_ms(lambda: model.encode_cameras(inputs[0]), reps=10),
-            "lift_to_bev": time_ms(lambda: model.lift_to_bev(c3, c4, *inputs[1:]), reps=10),
-            "bev_encoder": time_ms(lambda: model.bev_encoder(bev), reps=10),
-            "txt_branch": time_ms(lambda: model.txt_branch(c3, refined), reps=10),
-        }
-        busy_ms, summed_ms, top = device_profile(lambda: model(*inputs))
+        # stage breakdown through the model's own stage methods, in the
+        # precision that the forward pins around them
+        with full_float32():
+            c3, c4 = model.encode_cameras(inputs[0])
+            bev = model.lift_to_bev(c3, c4, *inputs[1:])
+            _, refined = model.bev_encoder(bev)
+            stages = {
+                "encode_cameras": time_ms(lambda: model.encode_cameras(inputs[0]), reps=10),
+                "lift_to_bev": time_ms(lambda: model.lift_to_bev(c3, c4, *inputs[1:]), reps=10),
+                "bev_encoder": time_ms(lambda: model.bev_encoder(bev), reps=10),
+                "txt_branch": time_ms(lambda: model.txt_branch(c3, refined), reps=10),
+            }
+        busy_ms, summed_ms, top, syncs = device_profile(lambda: model(*inputs))
     print(f"forward B={B} {short}: {fwd_ms:.3f} ms median of 10 ({fwd[0]:.3f}-{fwd[-1]:.3f}), "
           f"{B / fwd_ms * 1e3:.2f} samples/s (a sample is {NCAM} cameras)")
     print(f"stages, {short} (ms, CUDA events): {json.dumps(stages)}")
@@ -628,8 +732,10 @@ def eval_forward(dev, dtype, phase, wrappers):
           f"{'not measured' if idle is None else f'{idle:.3f}'}")
     for name, ms, count in top:
         print(f"  {ms:9.3f} ms {count:4d}x {name}")
+    print(f"host syncs in one {short} forward (profiler): {json.dumps(syncs)}")
     print(f"peak device memory in phase {phase}: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return launches, None, dict(forward_ms=fwd_ms, busy_ms=busy_ms, idle_share=idle, stages=stages)
+    return launches, None, dict(forward_ms=fwd_ms, busy_ms=busy_ms, idle_share=idle, stages=stages,
+                                syncs=syncs)
 
 
 def split_checks(dev):
@@ -657,47 +763,12 @@ def split_checks(dev):
     return bad
 
 
-def main() -> int:
-    try:
-        import numpy  # noqa: F401
-        import torch
-    except ImportError as e:
-        return _fail(f"missing dependency: {e}")
-    if not torch.cuda.is_available():
-        return _fail("no CUDA device: this script measures the port on the card")
-    if not (ROOT / "lss2_multimodal_nu_tpu_torch").is_dir():
-        return _fail("run from a checkout of the repository: the port package is missing")
-    sys.path.insert(0, str(ROOT))
-    from lss2_multimodal_nu_tpu_torch.config import Config, ModelConfig
-    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
-    from lss2_multimodal_nu_tpu_torch.ops import _build
-    from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
-    from lss2_multimodal_nu_tpu_torch.ops import ffn
-    from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
-    from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
-    from lss2_multimodal_nu_tpu_torch.train.steps import train_step, train_without_dropout
-
-    dev = torch.device("cuda", 0)
-
-    # ---- 1. setup
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi unavailable"
-    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    print(f"card: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.1f} s for {sorted(built)}")
-    for name, kernel, spill, used in ptxas_lines():
-        print(f"  ptxas {name}: {kernel}: {spill}; {used}")
-    for name in ("ffn_ln", "seg_head"):
-        print(f"  {name}: {tf32_hgmma_count(_build.BUILD_DIR / f'lib{name}.so')} TF32 HGMMA "
-              "instructions in the library (cuobjdump -sass)")
+def check_kernels(dev):
+    """Phases 2 and 2b: every kernel against its plain version, timed beside
+    its bound and yardstick; prints a `kernel_check` line each. Returns
+    (forward rows, backward rows, failure message or None), keyed by (name,
+    dtype, locations) and (output, dtype, locations)."""
+    import torch
 
     # ---- 2. kernels against their plain versions
     rows = {}
@@ -738,15 +809,27 @@ def main() -> int:
             row.update(locations=c["locations"], composite_ms=time_ms(c["composite"]),
                        composite_max_rel_err=float((comp - ref).abs().max()) / max(scale, 1e-30))
             del comp
+        if "prep" in c:
+            row["prep_ms"] = time_ms(c["prep"])
+            row["device_busy_ms"] = device_profile(c["kernel"])[0]
+            row["prep_device_busy_ms"] = device_profile(c["prep"])[0]
+            print(f"lift-splat index preparation (keys kernel, stable radix sort, row offsets), "
+                  f"B={B} {c['dtype']}: {row['prep_ms']:.4f} ms of the wrapper's {kms:.4f} ms; "
+                  f"device busy {row['prep_device_busy_ms']:.4f} of "
+                  f"{row['device_busy_ms']:.4f} ms in one call (profiler)")
+        if c.get("repeat"):
+            row["repeats_bit_for_bit"] = bool(torch.equal(c["kernel"](), c["kernel"]()))
+            row["passed"] = passed = passed and row["repeats_bit_for_bit"]
+            ok &= passed
         print("kernel_check " + json.dumps(row))
         rows[(c["name"], c["dtype"], c.get("locations", "uniform"))] = row
     if not ok:
-        return _fail("a kernel disagrees with its plain version")
+        return None, None, "a kernel disagrees with its plain version"
     bad = split_checks(dev)
     if bad:
-        return _fail(f"the TF32 split of {bad} differs from ops/_tf32.py")
+        return None, None, f"the TF32 split of {bad} differs from ops/_tf32.py"
 
-    # ---- 2b. the deformable-sampling backward kernel at the train-v2 shapes
+    # ---- 2b. the two backward kernels at the train-v2 shapes
     bwd_rows = {}
     for c in backward_cases(dev):
         got, ref = c["kernel"](), c["plain"]()
@@ -772,29 +855,112 @@ def main() -> int:
             print("kernel_check " + json.dumps(row))
             bwd_rows[(out, c["dtype"], c["locations"])] = row
         del got, ref
+    for c in lift_backward_cases(dev):
+        got, ref = c["kernel"](), c["plain"]()
+        again = c["kernel"]()
+        torch.cuda.synchronize()
+        repeats = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        kms = time_ms(c["kernel"])
+        pms = time_ms(c["plain"], reps=10, warmup=1)
+        t_bytes, t_ops = c["bytes"] / HBM_BYTES_PER_S * 1e3, c["ops"] / PEAK_OPS["float32"] * 1e3
+        for out, a, b in zip(("dfeat", "ddepth"), got, ref):
+            a, b = a.float(), b.float()
+            err = float((a - b).abs().max())
+            rel = err / max(float(b.abs().max()), 1e-30)
+            passed = bool(torch.isfinite(a).all()) and rel <= c["tol"][out] and repeats
+            ok &= passed
+            row = dict(name="lift_splat_backward", output=out, dtype=c["dtype"],
+                       max_abs_err=err, max_rel_err=rel, rel_tol=c["tol"][out], passed=passed,
+                       repeats_bit_for_bit=repeats, ms=kms, plain_ms=pms, library_ms=None,
+                       composite_ms=pms, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=c["bytes"], ops=c["ops"])
+            print("kernel_check " + json.dumps(row))
+            bwd_rows[(out, c["dtype"], "uniform")] = row
+        del got, ref, again
     if not ok:
-        return _fail("the backward kernel disagrees with its plain version")
-    feat, depth, seg_i, fidx, n_vox, _ = lift_inputs(dev, TRAIN_B)
-    feat = feat.bfloat16()
-    g_bev = torch.randn(TRAIN_B, n_vox, 128, device=dev, dtype=torch.bfloat16)
-    lsb_ms = time_ms(lambda: ls.fused_lift_splat_backward(feat, depth, seg_i, fidx, g_bev),
-                     reps=10)
-    print(f"lift-splat backward (PyTorch gather + index_add_), B={TRAIN_B} bf16: {lsb_ms:.3f} ms")
-    del feat, depth, seg_i, fidx, g_bev
+        return None, None, "a backward kernel disagrees with its plain version"
+    return rows, bwd_rows, None
+
+
+def precision_flags():
+    """torch's process-wide float32 precision flags, as a short string."""
+    import torch
+
+    return (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+            f"float32 matmul precision={torch.get_float32_matmul_precision()!r}")
+
+
+def main() -> int:
+    try:
+        import numpy  # noqa: F401
+        import torch
+    except ImportError as e:
+        return _fail(f"missing dependency: {e}")
+    if not torch.cuda.is_available():
+        return _fail("no CUDA device: this script measures the port on the card")
+    if not (ROOT / "lss2_multimodal_nu_tpu_torch").is_dir():
+        return _fail("run from a checkout of the repository: the port package is missing")
+    sys.path.insert(0, str(ROOT))
+    from lss2_multimodal_nu_tpu_torch.config import Config, ModelConfig
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+    from lss2_multimodal_nu_tpu_torch.ops import _build
+    from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
+    from lss2_multimodal_nu_tpu_torch.ops import ffn
+    from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
+    from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
+    from lss2_multimodal_nu_tpu_torch.ops._precision import full_float32
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_step, train_without_dropout
+
+    dev = torch.device("cuda", 0)
+
+    # ---- 1. setup
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi unavailable"
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"card: {card}")
+    defaults = precision_flags()
+    with full_float32():
+        pinned = precision_flags()
+    print(f"precision flags: phases 2 and 2b run inside full_float32 ({pinned}); phases 3-6 "
+          f"under the process's flags ({defaults}), and phase 4 a second time with float32 "
+          "matmul precision 'high'; the port's entry points pin full float32 themselves")
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s for {sorted(built)}")
+    for name, kernel, spill, used in ptxas_lines():
+        print(f"  ptxas {name}: {kernel}: {spill}; {used}")
+    for name in ("ffn_ln", "seg_head"):
+        print(f"  {name}: {tf32_hgmma_count(_build.BUILD_DIR / f'lib{name}.so')} TF32 HGMMA "
+              "instructions in the library (cuobjdump -sass)")
+
+    # ---- 2, 2b. kernels against their plain versions, in full float32
+    with full_float32():
+        rows, bwd_rows, err = check_kernels(dev)
+    if err:
+        return _fail(err)
 
     # ---- 3. the flagship eval forward at full width, B=6, bfloat16; 3b. float32
     wrappers = {"deformable_sample": ds.deformable_sample_combine_xy,
                 "deformable_sample_backward": ds.deformable_sample_combine_xy_backward,
-                "lift_splat": ls.fused_lift_splat, "ffn_ln": ffn.fused_ffn_ln,
-                "seg_head": sh.fused_seg_head}
-    launches, err, _ = eval_forward(dev, "bfloat16", "3", wrappers)
-    if err:
-        return _fail(err)
-    _, err, _ = eval_forward(dev, "float32", "3b", wrappers)
-    if err:
-        return _fail(err)
+                "lift_splat": ls.fused_lift_splat,
+                "lift_splat_backward": ls.fused_lift_splat_backward,
+                "ffn_ln": ffn.fused_ffn_ln, "seg_head": sh.fused_seg_head}
+    by_dtype = {}
+    for dtype, phase in (("bfloat16", "3"), ("float32", "3b")):
+        by_dtype[dtype], err, numbers = eval_forward(dev, dtype, phase, wrappers)
+        if err:
+            return _fail(err)
+        if numbers["syncs"]["cudaStreamSynchronize"] or numbers["syncs"]["cudaMemcpy"]:
+            return _fail(f"the {dtype} forward makes host syncs: {numbers['syncs']}")
+    launches = by_dtype["bfloat16"]
 
-    # ---- 4. float32 on the card (kernels) against the CPU (plain versions), B=1
+    # ---- 4. float32 on the card (kernels) against the CPU (plain versions), B=1,
+    # under the process's flags and again with float32 matmuls at "high"
     cfg32 = Config(model=ModelConfig(family="vovnet_transformer", compute_dtype="float32"))
     cpu_model = build_model(cfg32, device="cpu", seed=0)
     perturb(cpu_model, seed=1)
@@ -803,14 +969,42 @@ def main() -> int:
     one = fake_inputs(1, seed=3)
     with torch.inference_mode():
         out_cpu = cpu_model(*[torch.from_numpy(a) for a in one])
-        out_gpu = [t.cpu() for t in gpu_model(*[torch.from_numpy(a).to(dev) for a in one])]
     tol = {"bev_seg": 2e-3, "action": 1e-3, "desc": 1e-3}
-    for (name, atol), a, b in zip(tol.items(), out_gpu, out_cpu):
-        diff = float((a - b).abs().max())
-        print(f"gpu vs cpu f32 {name}: max abs diff {diff:.3e} (atol {atol}), "
-              f"max |cpu| {float(b.abs().max()):.3e}")
-        if not diff <= atol:
-            return _fail(f"GPU and CPU forwards disagree on {name}")
+    matmul, cudnn_tf32 = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+
+    def card_forward():
+        with torch.inference_mode():
+            return [t.cpu() for t in gpu_model(*[torch.from_numpy(a).to(dev) for a in one])]
+
+    # the forward with TF32 turned off by the caller: the forward pins the
+    # same flags itself, so under any flags it must give these bits (a forward
+    # run unpinned under torch's defaults misses them; scripts/port_precision.py)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    out_off = card_forward()
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.set_float32_matmul_precision(matmul)
+    for precision in (matmul, "high"):
+        torch.set_float32_matmul_precision(precision)
+        before = precision_flags()
+        out_gpu = card_forward()
+        after = precision_flags()
+        torch.set_float32_matmul_precision(matmul)
+        print(f"phase 4 under {before}; after the forward: {after}")
+        if after != before:
+            return _fail(f"the forward left the precision flags at {after}, not {before}")
+        same = all(torch.equal(a, b) for a, b in zip(out_gpu, out_off))
+        print(f"card f32 forward under {before}: bit for bit equal to the forward with TF32 "
+              f"turned off by the caller: {same}")
+        if not same:
+            return _fail(f"the forward under {before} differs from the one with TF32 turned off "
+                         "by the caller: it does not pin full float32")
+        for (name, atol), a, b in zip(tol.items(), out_gpu, out_cpu):
+            diff = float((a - b).abs().max())
+            print(f"gpu vs cpu f32 {name} (matmul {precision!r}): max abs diff {diff:.3e} "
+                  f"(atol {atol}), max |cpu| {float(b.abs().max()):.3e}")
+            if not diff <= atol:
+                return _fail(f"GPU and CPU forwards disagree on {name} at matmul {precision!r}")
 
     del gpu_model, cpu_model, out_cpu, out_gpu
 
@@ -855,8 +1049,8 @@ def main() -> int:
         step_ms = times[len(times) // 2]
         split = split_step_ms(model, opt, sched, batch, step)
         step += 5
-        busy_ms, summed_ms, top = device_profile(lambda: train_step(model, opt, sched, batch, step),
-                                                 top=15)
+        busy_ms, summed_ms, top, syncs = device_profile(
+            lambda: train_step(model, opt, sched, batch, step), top=15)
         peak = torch.cuda.max_memory_allocated() / 1e9
     except torch.cuda.OutOfMemoryError:
         return _fail(f"the B={TRAIN_B} train step does not fit on the card: peak "
@@ -868,6 +1062,7 @@ def main() -> int:
           f"{summed_ms:.3f}), idle share of the timed step {1 - busy_ms / step_ms:.3f}")
     for name, ms, count in top:
         print(f"  {ms:9.3f} ms {count:4d}x {name}")
+    print(f"host syncs in one train step (profiler): {json.dumps(syncs)}")
     print(f"peak device memory in phase 5: {peak:.2f} GB")
     del model, opt, sched, batch, metrics
 
@@ -877,8 +1072,10 @@ def main() -> int:
     cpu_model, cpu_opt, cpu_sched = train_setup("cpu", "float32")
     gpu_model, gpu_opt, gpu_sched = train_setup(dev, "float32")
     ctl_model, ctl_opt, ctl_sched = train_setup(dev, "float32")
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    ctl_model.load_state_dict(cpu_model.state_dict())
+    off_model, off_opt, off_sched = train_setup(dev, "float32")
+    high_model, high_opt, high_sched = train_setup(dev, "float32")
+    for m in (gpu_model, ctl_model, off_model, high_model):
+        m.load_state_dict(cpu_model.state_dict())
     gen = torch.Generator().manual_seed(5)
     with torch.no_grad():
         for p in ctl_model.parameters():
@@ -888,6 +1085,14 @@ def main() -> int:
     m_cpu = train_step(train_without_dropout(cpu_model), cpu_opt, cpu_sched, cpu_batch, 0)
     m_gpu = train_step(train_without_dropout(gpu_model), gpu_opt, gpu_sched, gpu_batch, 0)
     train_step(train_without_dropout(ctl_model), ctl_opt, ctl_sched, gpu_batch, 0)
+    cudnn_tf32, matmul = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    m_off = train_step(train_without_dropout(off_model), off_opt, off_sched, gpu_batch, 0)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.set_float32_matmul_precision("high")
+    m_high = train_step(train_without_dropout(high_model), high_opt, high_sched, gpu_batch, 0)
+    torch.set_float32_matmul_precision(matmul)
     # ten times the differences measured (7.4e-7 and 1.5e-4) or more
     for k, rtol in (("loss", 1e-5), ("grad_norm", 2e-3)):
         a, b = float(m_gpu[k]), float(m_cpu[k])
@@ -895,12 +1100,7 @@ def main() -> int:
               f"(rtol {rtol})")
         if not abs(a - b) <= rtol * abs(b):
             return _fail(f"GPU and CPU train steps disagree on {k}")
-    # the leaves upstream of both kernels, which a cut-off autograd would zero
-    upstream = [n for n, _ in cpu_model.named_parameters()
-                if n.split(".")[0] in ("cam_encode", "depth_net")
-                or n in ("backbone.backbone.stem.0.conv.weight",
-                         *(f"bev_encoder.transformer.encoder.self_attn.{m}.weight"
-                           for m in ("sampling_offsets", "attention_weights", "value_proj")))]
+    upstream = upstream_leaves(cpu_model)
     vs_cpu = grad_diffs(gpu_model, cpu_model, upstream)
     control = grad_diffs(ctl_model, gpu_model, upstream)
     top = max(d[2] for d in vs_cpu.values())
@@ -931,11 +1131,25 @@ def main() -> int:
               f"diff / norm (tol {GRAD_NORM_TOL}), {wn_cpu:.3e} and {wn_ctl:.3e}")
     if bad:
         return _fail(f"GPU and CPU gradients disagree on {bad}")
+    for label, m, model in (("torch's defaults", m_gpu, gpu_model),
+                            ("matmul 'high'", m_high, high_model)):
+        diffs = grad_diffs(model, off_model, upstream)
+        top_off = max(d[2] for d in diffs.values())
+        worst = max(d[1] for d in diffs.values() if d[2] > 1e-4 * top_off)
+        same = bool(torch.equal(m["loss"], m_off["loss"]))
+        print(f"card f32 train step under {label} against TF32 turned off by the caller: loss "
+              f"bit for bit {same}; worst norm of diff / norm over the leaves upstream "
+              f"{worst:.3e} (tol {PIN_GRAD_TOL})")
+        if not (same and worst <= PIN_GRAD_TOL):
+            return _fail(f"the train step under {label} differs from the one with TF32 turned "
+                         "off by the caller: it does not pin full float32")
 
     kernels = []
+    backward_outputs = {"deformable_sample_backward": ("dv", "dlx", "dly", "dattn"),
+                        "lift_splat_backward": ("dfeat", "ddepth")}
     for name, (src, replaces, n_eval, _) in KERNELS.items():
-        if name == "deformable_sample_backward":
-            outs = [bwd_rows[(o, "bfloat16", "uniform")] for o in ("dv", "dlx", "dly", "dattn")]
+        if name in backward_outputs:
+            outs = [bwd_rows[(o, "bfloat16", "uniform")] for o in backward_outputs[name]]
             row = dict(outs[0], max_abs_err=max(r["max_abs_err"] for r in outs))
         else:
             row = rows[(name, "bfloat16", "uniform")]

@@ -5,6 +5,7 @@ multiply-and-sum, so no TF32 matrix unit can round them on the card.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -63,6 +64,22 @@ def get_geometry(
     return pts + trans[:, :, None, None, None, :]
 
 
+@lru_cache(maxsize=16)
+def _grid_consts(dx: tuple, bx: tuple, nx: tuple, dtype, device):
+    """(low edge, voxel size, voxel counts) of the grid as tensors on `device`,
+    made once per grid and device: a copy from host memory on every call
+    would make the host wait for the device. The low edge is `bx - dx / 2.0`
+    in float32 tensor arithmetic, rounded as the JAX package rounds it (a
+    Python float would round in double and could move a point across a
+    voxel edge). Made outside inference mode, whatever the first caller's
+    mode, so that autograd may use them later."""
+    with torch.inference_mode(False):
+        dxt = torch.tensor(dx, dtype=dtype, device=device)
+        bxt = torch.tensor(bx, dtype=dtype, device=device)
+        nxt = torch.tensor(nx, dtype=torch.int32, device=device)
+        return bxt - dxt / 2.0, dxt, nxt
+
+
 def voxel_indices(
     geom: torch.Tensor, dx: np.ndarray, bx: np.ndarray, nx: np.ndarray
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -70,9 +87,9 @@ def voxel_indices(
     mask. The cast truncates toward zero, as the original model's `.long()`
     does (not floor), so points just below the grid's low edge land in
     voxel 0."""
-    dxt = torch.as_tensor(dx, dtype=geom.dtype, device=geom.device)
-    bxt = torch.as_tensor(bx, dtype=geom.dtype, device=geom.device)
-    idx = ((geom - (bxt - dxt / 2.0)) / dxt).to(torch.int32)
-    nxt = torch.as_tensor(np.asarray(nx), dtype=torch.int32, device=geom.device)
+    key = lambda a, t: tuple(np.asarray(a, dtype=t).tolist())
+    low, dxt, nxt = _grid_consts(key(dx, np.float32), key(bx, np.float32), key(nx, np.int64),
+                                 geom.dtype, geom.device)
+    idx = ((geom - low) / dxt).to(torch.int32)
     valid = ((idx >= 0) & (idx < nxt)).all(dim=-1)
     return idx, valid

@@ -1,6 +1,6 @@
 // Shared pieces of the deformable-sampling kernels (forward and backward):
 // how a block's lanes map onto queries and 16-byte slices of the value rows,
-// the bilinear geometry of one sample, and 16-byte loads of bf16 or float.
+// and the bilinear geometry of one sample.
 //
 // A value row holds dh channels, `slices` = dh * sizeof(T) / 16 slices of
 // 16 bytes (8 bf16 or 4 floats; dh a multiple of 8). A group of G lanes, the
@@ -93,47 +93,9 @@ __device__ __forceinline__ int corner_row(const Sample& s, int k, int w) {
   return s.row + (k >> 1) * w + (k & 1);
 }
 
-__device__ __forceinline__ uint4 ld16(const char* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-// 16 bytes of T as floats, and back (bf16 rounded to nearest even).
-template <typename T> struct Vec;
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void unpack(uint4 r, float* f) {
-    const uint32_t u[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(u[i] << 16);
-      f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-    }
-  }
-  __device__ __forceinline__ static uint4 pack(const float* f) {
-    uint32_t u[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 b = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-      u[i] = *reinterpret_cast<const uint32_t*>(&b);
-    }
-    return make_uint4(u[0], u[1], u[2], u[3]);
-  }
-};
-
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void unpack(uint4 r, float* f) {
-    f[0] = __uint_as_float(r.x);
-    f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z);
-    f[3] = __uint_as_float(r.w);
-  }
-  __device__ __forceinline__ static uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                      __float_as_uint(f[3]));
-  }
-};
+// 16-byte loads and the float conversions of a slice (`common.cuh`).
+using ::lss::ld16;
+using ::lss::Vec;
 
 }  // namespace deform
 }  // namespace lss

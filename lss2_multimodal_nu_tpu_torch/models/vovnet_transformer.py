@@ -31,13 +31,17 @@ from ..nn.fusion import (
 from ..nn.layers import global_avg_pool
 from ..nn.lss_modules import SceneUnder
 from ..nn.vovnet import VoVNetBackbone
+from ..ops._precision import full_float32
 from ..ops.lift_splat import lift_splat
 
 
 class VoVNetBEVTransformer(nn.Module):
     """forward(imgs (B, N, 3, H, W), rots, trans, intrins, post_rots,
     post_trans) -> (bev_seg (B, 4, X, Y), action (B, 4), desc (B, 8)), in the
-    config's compute dtype. Parameters stay float32."""
+    config's compute dtype. Parameters stay float32. The forward runs in
+    full float32 precision whatever torch's TF32 flags say
+    (`ops/_precision.py`); the stage methods it calls do not pin them
+    themselves."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -104,8 +108,9 @@ class VoVNetBEVTransformer(nn.Module):
         return self.unified_predictor(x)
 
     def forward(self, imgs, rots, trans, intrins, post_rots, post_trans):
-        c3, c4 = self.encode_cameras(imgs)
-        bev = self.lift_to_bev(c3, c4, rots, trans, intrins, post_rots, post_trans)
-        bev_seg, bev_refined = self.bev_encoder(bev)
-        action, desc = self.txt_branch(c3, bev_refined)
+        with full_float32():
+            c3, c4 = self.encode_cameras(imgs)
+            bev = self.lift_to_bev(c3, c4, rots, trans, intrins, post_rots, post_trans)
+            bev_seg, bev_refined = self.bev_encoder(bev)
+            action, desc = self.txt_branch(c3, bev_refined)
         return bev_seg, action, desc

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._precision import full_float32
 from ._tf32 import permute_k8, split_tf32
 
 
@@ -30,12 +31,14 @@ def _ln(x, scale, bias, eps):
     return d * torch.rsqrt(var + eps) * scale + bias
 
 
+@full_float32()
 def fused_ffn_ln_plain(u, w1, b1, w2, b2, scale1, bias1, scale2, bias2,
                        eps: float = 1e-6, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of the kernel's arithmetic: every weight and the LN1
     output are rounded to `compute_dtype`, the products accumulate in float32
     (the rounded operands are multiplied as float32), LN and GELU run in
-    float32. Output in u's dtype."""
+    float32, in full float32 precision whatever torch's TF32 flags say.
+    Output in u's dtype."""
     cd = compute_dtype
     r = lambda t: t.to(cd).float()
     s = _ln(u.float(), r(scale1), r(bias1), eps)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._precision import full_float32
 from ._tf32 import split_tf32
 
 
@@ -38,10 +39,12 @@ def _img(x, h, w):
     return x.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
+@full_float32()
 def fused_seg_head_plain(x, w0, b0, w1, b1, w2, b2, h: int, w: int) -> torch.Tensor:
     """Plain version of the kernels' arithmetic: the conv operands in x's
     dtype multiplied as float32, conv0's output rounded to x's dtype (it
-    crosses memory in that dtype), conv1 and the head in float32."""
+    crosses memory in that dtype), conv1 and the head in float32, in full
+    float32 precision whatever torch's TF32 flags say."""
     cd = x.dtype
     r = lambda t: t.to(cd).float()
     hwio = lambda k: r(k).permute(3, 2, 0, 1)

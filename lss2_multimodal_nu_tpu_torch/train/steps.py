@@ -8,7 +8,10 @@ A batch is a dict of tensors on the model's device: the model inputs of
 with dropout drawn from a stream seeded by (cfg.train.seed, step), as the
 JAX step folds the step into its key; the loss; backward; the global-norm
 clip; Adam; one step of the schedule. Its metrics stay on the device
-(0-dim tensors), so a loop pays no host sync unless it reads them.
+(0-dim tensors), so a loop pays no host sync unless it reads them. Both
+steps run in full float32 precision whatever torch's TF32 flags say
+(`ops/_precision.py`): the backward's convolutions go through cuDNN too,
+outside the model's forward.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..ops._precision import full_float32
 from .losses import multi_task_loss
 from .metrics import confusion_matrix_update
 
@@ -54,6 +58,7 @@ def train_without_dropout(model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
+@full_float32()
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                scheduler: torch.optim.lr_scheduler.LRScheduler, batch: Batch,
                step: int, mark: Optional[Callable[[str], None]] = None
@@ -82,6 +87,7 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     return {**{k: v.detach() for k, v in metrics.items()}, "grad_norm": grad_norm}
 
 
+@full_float32()
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, batch: Batch, confmat: torch.Tensor) -> Dict:
     """Eval forward of a model in eval mode; returns {confmat (updated),

@@ -49,13 +49,16 @@ def main() -> int:
         print(f"port_eval_forward: the port imported from {_build.__file__}, not {root}",
               file=sys.stderr)
         return 1
+    # a checkout from before the port pinned its own float32 precision needs
+    # the flags set process-wide to compute the same function
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
     wrappers = {"deformable_sample": ds.deformable_sample_combine_xy,
                 "deformable_sample_backward": ds.deformable_sample_combine_xy_backward,
-                "lift_splat": ls.fused_lift_splat, "ffn_ln": ffn.fused_ffn_ln,
-                "seg_head": sh.fused_seg_head}
+                "lift_splat": ls.fused_lift_splat,
+                "lift_splat_backward": ls.fused_lift_splat_backward,
+                "ffn_ln": ffn.fused_ffn_ln, "seg_head": sh.fused_seg_head}
     _, err, numbers = smoke.eval_forward(torch.device("cuda", 0), args.dtype, "3", wrappers)
     if err:
         print(f"port_eval_forward: {err}", file=sys.stderr)

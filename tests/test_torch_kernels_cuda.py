@@ -6,9 +6,13 @@ edges of their query tiles and lane groups (and their refusal of a dh that
 is no multiple of 8). The float32 FFN tail and seg head, which run in three
 TF32 passes, also at inputs of magnitude ~1e3 with weights whose TF32 lo
 parts are near their largest, where one pass would miss the tolerance, and
-their weights' split bit for bit against `ops/_tf32.py`. Plus the whole
-model in float32 on the card against the CPU at a 30x30 BEV grid, in eval
-and for one train step with its gradients.
+their weights' split bit for bit against `ops/_tf32.py`. The lift-splat
+forward and backward with a voxel of 5000 points and a feature row of none,
+repeated bit for bit, their index preparation against the CPU's, their
+refusal of rows that are no whole number of 16-byte slices, and no host
+sync in a second call. Plus the whole model in float32 on the card against
+the CPU at a 30x30 BEV grid, in eval and for one train step with its
+gradients, with TF32 turned off by the caller and under torch's defaults.
 
 Marked `cuda`; each test skips without a card. On the card, without JAX
 (this file imports none, and the suite's conftest imports JAX):
@@ -18,7 +22,8 @@ Marked `cuda`; each test skips without a card. On the card, without JAX
 Tolerances are those of `chip_smoke.py`, relative to the plain output's
 largest magnitude: float32 1e-5 for the gathers and the scatter (sum
 order), 1e-4 for the matrix-product kernels; bfloat16 one ulp (2^-7), or
-two (2^-6) where the kernel rounds an intermediate to bf16."""
+two (2^-6) where the kernel rounds an intermediate to bf16; the lift-splat
+backward's ddepth, float32 in both dtypes, 1e-5."""
 import numpy as np
 import pytest
 import torch
@@ -45,6 +50,34 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.fixture
+def dev_defaults():
+    """The card under torch's default cuDNN flag (TF32 allowed) and the
+    matrix-product precision "high" (TF32 allowed) that training scripts often
+    set: the port pins full float32 itself (`ops/_precision.py`), and leaves
+    the flags as it found them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    old = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    yield torch.device("cuda", 0)
+    flags = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = old[0]
+    torch.set_float32_matmul_precision(old[1])
+    assert flags == (True, "high")
+
+
+# the two ways the whole-model checks run: TF32 turned off by the caller, and
+# torch's defaults with matrix products at "high"
+FLAGS = ["tf32_off", "torch_defaults_matmul_high"]
+
+
+def _card(request, flags):
+    return request.getfixturevalue({"tf32_off": "dev",
+                                    "torch_defaults_matmul_high": "dev_defaults"}[flags])
 
 
 def _rng_tensors(dev, seed):
@@ -237,7 +270,8 @@ def test_deformable_dh_off_16_bytes_raises(dev, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_lift_splat_ragged(dev, dtype):
-    """C=40 (no multiple of 32), 1001 points (a partial run of 64)."""
+    """C=40 (5 or 10 slices of 16 bytes: a lane group of 8 or 16 with idle
+    lanes), 1001 points (no multiple of a lane group)."""
     rng, g, u = _rng_tensors(dev, 2)
     b, r, p, c, nv = 2, 17, 1001, 40, 50
     feat = g(b, r, c).to(dtype)
@@ -248,6 +282,147 @@ def test_lift_splat_ragged(dev, dtype):
     _check(lambda: f(feat, depth, seg, fidx, nv),
            lambda: ls.fused_lift_splat_plain(feat, depth, seg, fidx, nv),
            1e-5 if dtype == torch.float32 else 2 ** -7, f)
+
+
+def _splat_operands(dev, dtype, c, seed=3, p=1001, crowd=5000):
+    """Lift-splat operands with 30% depth-0 points (seg 0, as `lift_splat`
+    prepares them), a point count off every lane group, one voxel (3) that
+    takes `crowd` more points, feature row 4 that no point reads, and a
+    cotangent g of the output."""
+    rng, g, u = _rng_tensors(dev, seed)
+    b, r, nv = 2, 17, 50
+    p_all = p + crowd
+    depth = u(b, p_all) * (u(b, p_all) > 0.3)
+    seg = torch.from_numpy(rng.integers(0, nv, (b, p_all)).astype(np.int32)).to(dev)
+    seg[:, p:] = 3
+    seg = torch.where(depth != 0, seg, 0)
+    fidx = torch.from_numpy(rng.integers(0, r, (b, p_all)).astype(np.int32)).to(dev)
+    fidx = torch.where(fidx == 4, 5, fidx)
+    return g(b, r, c).to(dtype), depth, seg, fidx, nv, g(b, nv, c).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [40, 128])
+def test_lift_splat_crowded_voxel(dev, dtype, c):
+    """The forward with one voxel of 5000 points (a run of 157 lane groups'
+    worth at C=128 in float32), against its plain version."""
+    feat, depth, seg, fidx, nv, _ = _splat_operands(dev, dtype, c)
+    f = ls.fused_lift_splat
+    _check(lambda: f(feat, depth, seg, fidx, nv),
+           lambda: ls.fused_lift_splat_plain(feat, depth, seg, fidx, nv),
+           1e-5 if dtype == torch.float32 else 2 ** -7, f)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [40, 128])
+def test_lift_splat_backward_matches_plain(dev, dtype, c):
+    """The backward kernel against its plain version: dfeat to 1e-5 in
+    float32 (sums in another order) and 2^-7 in bfloat16 (rounded once at
+    the end, where the order may flip the rounding: one ulp); ddepth, float32
+    in both dtypes, to 1e-5 (a dot product of C terms in another order). The
+    depth-0 points get their ddepth too, and feature row 4, which no point
+    reads, a zero dfeat."""
+    feat, depth, seg, fidx, nv, cot = _splat_operands(dev, dtype, c)
+    f = ls.fused_lift_splat_backward
+    before = f.launches
+    dfeat, ddepth = f(feat, depth, seg, fidx, cot)
+    torch.cuda.synchronize()
+    assert f.launches == before + 1
+    want_feat, want_depth = ls.fused_lift_splat_backward_plain(feat, depth, seg, fidx, cot)
+    tol_feat = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for name, a, b, tol in (("dfeat", dfeat, want_feat, tol_feat),
+                            ("ddepth", ddepth, want_depth, 1e-5)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), (name, err)
+    assert bool((dfeat[:, 4] == 0).all()) and bool((ddepth[depth == 0] != 0).all())
+
+
+def test_lift_splat_function_launches_both_kernels(dev):
+    """Autograd through `fused_lift_splat` on the card: one forward and one
+    backward launch, and gradients equal to the explicit backward's bit for
+    bit (the same kernel), with the CSR over fidx built in the backward and
+    passed in."""
+    feat, depth, seg, fidx, nv, cot = _splat_operands(dev, torch.float32, 40, crowd=40)
+    leaves = [feat.requires_grad_(), depth.requires_grad_()]
+    counters = (ls.fused_lift_splat, ls.fused_lift_splat_backward)
+    want = ls.fused_lift_splat_backward(feat.detach(), depth.detach(), seg, fidx, cot)
+    csr = ls.sort_points(fidx, None, feat.shape[1])
+    for kw in ({}, {"_fidx_csr": csr}):
+        before = [c.launches for c in counters]
+        (ls.fused_lift_splat(feat, depth, seg, fidx, nv, **kw) * cot).sum().backward()
+        torch.cuda.synchronize()
+        assert [c.launches for c in counters] == [b + 1 for b in before]
+        for leaf, b in zip(leaves, want):
+            assert torch.equal(leaf.grad, b)
+            leaf.grad = None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lift_splat_repeats_bit_for_bit(dev, dtype):
+    """Forward and backward, twice each on the same inputs, with thousands
+    of points in one voxel: equal bit for bit (no atomics; the stable sort
+    fixes every sum's order)."""
+    feat, depth, seg, fidx, nv, cot = _splat_operands(dev, dtype, 128, seed=8)
+    outs = [ls.fused_lift_splat(feat, depth, seg, fidx, nv) for _ in range(2)]
+    grads = [ls.fused_lift_splat_backward(feat, depth, seg, fidx, cot) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_sort_points_card_matches_cpu(dev):
+    """The card's keys kernel, stable sort and row offsets against the CPU
+    version (which `tests/test_torch_lift_splat.py` holds against numpy),
+    bit for bit, with and without weights."""
+    feat, depth, seg, fidx, nv, _ = _splat_operands(dev, torch.float32, 40)
+    for row, weight, n in ((seg, depth, nv), (fidx, None, feat.shape[1])):
+        got = ls.sort_points(row, weight, n)
+        want = ls.sort_points(row.cpu(), None if weight is None else weight.cpu(), n)
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 36), (torch.float32, 6)])
+def test_lift_splat_refuses_rows_off_16_bytes(dev, dtype, c):
+    """Rows that are no whole number of 16-byte slices raise before any
+    launch, forward and backward."""
+    feat, depth, seg, fidx, nv, cot = _splat_operands(dev, dtype, c, crowd=10)
+    counters = (ls.fused_lift_splat, ls.fused_lift_splat_backward)
+    before = [f.launches for f in counters]
+    with pytest.raises(ValueError, match="16-byte"):
+        ls.fused_lift_splat(feat, depth, seg, fidx, nv)
+    with pytest.raises(ValueError, match="16-byte"):
+        ls.fused_lift_splat_backward(feat, depth, seg, fidx, cot)
+    assert [f.launches for f in counters] == before
+
+
+def test_lift_splat_makes_no_host_sync(dev):
+    """After a first call (which builds the kernels and caches the frustum's
+    constants), a lift-splat forward and backward, and a whole
+    `model.lift_to_bev`, run under `cuda.set_sync_debug_mode("error")`: a
+    host sync (a pageable copy, an `.item()`) would raise."""
+    feat, depth, seg, fidx, nv, cot = _splat_operands(dev, torch.bfloat16, 128)
+    feat.requires_grad_()
+    _, card = _small_models(dev)
+    args = [a.to(dev) for a in _camera_args()]
+    with torch.no_grad():
+        c3, c4 = card.encode_cameras(args[0])
+
+    def run():
+        (ls.fused_lift_splat(feat, depth, seg, fidx, nv) * cot).sum().backward()
+        with torch.no_grad():
+            return card.lift_to_bev(c3, c4, *args[1:])
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bev = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(bev).all())
 
 
 # A full wave of both FFN kernels' 128-row blocks: one per SM of an H100.
@@ -405,10 +580,16 @@ def _camera_args(b=2, n=6):
     return [torch.from_numpy(a) for a in (imgs, rots, trans, intr, post_r, post_t)]
 
 
-def test_model_card_matches_cpu(dev):
+@pytest.mark.parametrize("flags", FLAGS)
+def test_model_card_matches_cpu(request, flags):
     """The float32 flagship on the card (kernels) against the CPU (plain
     versions) at a 30x30 BEV grid, whose 900 tokens leave partial tiles in
-    every kernel; the full-model tolerances (2e-3 BEV, 1e-3 action/desc)."""
+    every kernel; the full-model tolerances (2e-3 BEV, 1e-3 action/desc).
+    Once with TF32 turned off by the caller, once under torch's defaults with
+    matrix products at "high": the forward pins full float32 itself, so there
+    it also equals bit for bit the forward with TF32 turned off by the
+    caller (the tolerances alone would pass an unpinned forward too)."""
+    dev = _card(request, flags)
     cpu, card = _small_models(dev)
     args = _camera_args()
     b = 2
@@ -418,6 +599,17 @@ def test_model_card_matches_cpu(dev):
     assert got[0].shape == (b, 4, 30, 30)
     for g_, w_, atol in zip(got, want, (2e-3, 1e-3, 1e-3)):
         torch.testing.assert_close(g_, w_, atol=atol, rtol=0)
+    if flags != "tf32_off":
+        old = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        try:
+            with torch.inference_mode():
+                off = [t.cpu() for t in card(*[a.to(dev) for a in args])]
+        finally:
+            torch.backends.cudnn.allow_tf32 = old[0]
+            torch.set_float32_matmul_precision(old[1])
+        assert all(torch.equal(g_, o) for g_, o in zip(got, off))
 
 
 def _relative_grad_diffs(got, want, top):
@@ -432,7 +624,8 @@ def _relative_grad_diffs(got, want, top):
     return rel
 
 
-def test_train_step_card_matches_cpu(dev):
+@pytest.mark.parametrize("flags", FLAGS)
+def test_train_step_card_matches_cpu(request, flags):
     """One float32 train step of the 30x30-grid flagship, dropout off, on the
     card (kernels 1-3 and the lift-splat backward) against the CPU (plain
     versions): loss to 1e-4 and grad_norm to 2e-3 relative. A leaf whose
@@ -442,8 +635,17 @@ def test_train_step_card_matches_cpu(dev):
     card and within 0.25 in norm of the CPU's, median 0.06: at these small
     maps one ReLU flipped by round-off moves a layer's gradient visibly, as
     in tests/test_torch_train.py. The yardstick is printed beside it: the
-    card against itself from weights moved by 1e-7."""
+    card against itself from weights moved by 1e-7. Once with TF32 turned
+    off by the caller, once under torch's defaults with matrix products at
+    "high": the train step pins full float32 itself, its backward too, so
+    there it also gives the loss of the step with TF32 turned off by the
+    caller bit for bit, and each gradient within 1e-4 in norm (the
+    deformable backward's atomics add in varying order: 1.6e-6 at full size;
+    unpinned, 0.47; `chip_smoke.py::PIN_GRAD_TOL`)."""
+    dev = _card(request, flags)
     cpu, card, other = _small_models(dev, moved=True)
+    off = build_model(card.cfg, device=dev, seed=3)
+    off.load_state_dict(card.state_dict())
     args = _camera_args()
     rng = np.random.default_rng(8)
     batch = dict(zip(tsteps.MODEL_INPUTS, args),
@@ -470,3 +672,16 @@ def test_train_step_card_matches_cpu(dev):
           f"moved card vs card: worst {max(control.values()):.3g}, "
           f"median {float(np.median(list(control.values()))):.3g}")
     assert worst[0][1] <= 0.25 and float(np.median(list(rel.values()))) <= 0.06, worst
+    if flags != "tf32_off":
+        old = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        try:
+            opt, sched = ts.build_optimizer(off.cfg, tsteps.train_without_dropout(off))
+            m_off = tsteps.train_step(off, opt, sched, {k: v.to(dev) for k, v in batch.items()}, 0)
+        finally:
+            torch.backends.cudnn.allow_tf32 = old[0]
+            torch.set_float32_matmul_precision(old[1])
+        assert torch.equal(got["loss"], m_off["loss"])
+        pin = _relative_grad_diffs(card, off, top)
+        assert max(pin.values()) <= 1e-4, max(pin.items(), key=lambda kv: kv[1])
