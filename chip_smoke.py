@@ -33,24 +33,42 @@ Phases (any failure exits non-zero):
      against the CPU (plain versions), under torch's defaults and again with
      float32 matrix products at "high", each bit for bit equal to the card's
      forward with TF32 turned off by the caller (the forward pins it);
-  5. the flagship train step (train-v2: B=8, lr 1e-4, wd 1e-8, clip 10, the
-     warmup-cosine schedule, bfloat16) through `train/steps.py::train_step`,
-     with every kernel's launch count checked, 5 steps on one batch that
-     must move the loss, then timed and profiled;
+  5. the flagship train step (train-v2's batch, rate, decay, clip and
+     schedule: B=8, lr 1e-4, wd 1e-8, clip 10, warmup-cosine; but bfloat16
+     and LSS v2, where the CLI defaults to float32 and v1) through
+     `train/steps.py::train_step`, with every kernel's launch count checked,
+     5 steps on one batch that must move the loss, then timed and profiled,
+     with no `cudaStreamSynchronize` or `cudaMemcpy` in a step;
   6. one float32 train step at B=1, dropout off, on the card against the
      CPU: loss, grad_norm and the gradients upstream of both sampling
      kernels, printed beside the card's own spread from weights moved by
      1e-7, the yardstick of their limits; and the card's step under torch's
      defaults and under matmul "high" against its step with TF32 turned off
      by the caller (the step pins it): the loss bit for bit, the gradients
-     within PIN_GRAD_TOL.
+     within PIN_GRAD_TOL;
+  2c. (run with phase 2) kernels 3 and 3b at Stack A's width, C=64, in
+     float32 and bfloat16: the forward at B=6 and B=1, the backward at B=6,
+     against their plain versions with phase 2's limits, repeated bit for
+     bit, timed beside their bounds and `index_add_`;
+  7. Stack A: BevTxt, the published model (EfficientNet-b4, C=64, float32,
+     the JAX CLI's defaults), its eval forward at B=1 (predict) and B=6
+     through `build_model`: one lift-splat launch and no host sync a forward,
+     timed with its stages; at B=1 BevTxt, LSS and BevTxtOnlyBev on the card
+     against the CPU, and BevTxt bit for bit against TF32 turned off by the
+     caller;
+  8. BevTxt's train step at the CLI's `train` defaults (B=6, float32, lr
+     1e-4, wd 1e-8, clip 5.0, one group, no schedule): one lift-splat forward
+     and backward launch a step, no host sync, 5 steps that move the loss,
+     timed and split; one B=1 step on the card against the CPU beside the
+     card's own spread from weights moved by 1e-7.
 
-Phases 2 and 2b run kernels, plain versions and yardsticks in full
-float32 (`ops/_precision.py::full_float32`); phases 3 to 6 run under
+Phases 2, 2b and 2c run kernels, plain versions and yardsticks in full
+float32 (`ops/_precision.py::full_float32`); phases 3 to 8 run under
 torch's default flags, as a user's program would, and the port's entry
 points pin full float32 themselves. The last lines are the card
 (nvidia-smi), one JSON object with every kernel's numbers (the deformable
-kernels' at uniform locations), and `{"ok": true, "device": {...}}`. Needs
+kernels' at uniform locations; lift-splat at C=64 as entries of their own),
+and `{"ok": true, "device": {...}}`. Needs
 one CUDA card; imports no JAX.
 """
 from __future__ import annotations
@@ -96,6 +114,23 @@ GRAD_TOL, GRAD_NORM_TOL, GRAD_TOL_LINEAR = 0.2, 0.05, 1e-2
 # pin taken out of the forward and the step, by 0.47 on the stem conv
 # (scripts/port_precision.py, NVIDIA H100 80GB HBM3, 700.00 W).
 PIN_GRAD_TOL = 1e-4
+# Stack A (phases 2c, 7, 8): the lift-splat width (`cam_channels`), train's
+# batch (the JAX CLI's `train` default) and predict's batch
+STACK_A_C, STACK_A_B, PREDICT_B = 64, 6, 1
+# phase 8's leaves: the depth net, which reaches the loss only through the
+# lift-splat kernels (linear in its features), the encoder's Up and stem
+# upstream of it, and the BEV decoder's first conv, which reads the kernel's
+# output
+STACK_A_LEAVES = ("camencode.depthnet.weight", "camencode.depthnet.bias",
+                  "encoder.up1.conv.0.weight", "encoder.trunk._conv_stem.weight",
+                  "bevencode.conv1.weight")
+# Phase 8's limits are phase 6's but for the depth net's, which the control
+# (the card against itself from weights moved by 1e-7, B=1, dropout off)
+# moved by up to 1.45e-2 in max |diff| over max |grad| (NVIDIA H100 80GB
+# HBM3, 700.00 W; the card against the CPU 1.9e-3): the B=1 step's train-mode
+# batch norm on the 100x100 BEV maps flips ReLUs under round-off. 0.04 is
+# 2.8 times that spread, as phase 6's limits are to theirs.
+STACK_A_GRAD_TOL_LINEAR = 0.04
 
 
 def ptxas_lines():
@@ -250,11 +285,12 @@ def device_profile(fn, top=12):
     return busy / 1e3, sum(r[1] for r in rows), shown, syncs
 
 
-def lift_inputs(dev, b, seed=7):
+def lift_inputs(dev, b, seed=7, c=128):
     """Lift-splat operands at batch b: the real frustum geometry of the
-    flagship inputs, softmax depth weights, feature rows from a numpy seed,
+    flagship inputs (Stack A's is the same), softmax depth weights, feature
+    rows of width c (the flagship's 128, Stack A's 64) from a numpy seed,
     and the frustum's constant fidx with the CSR over it that the main path
-    caches. Returns (feat (B, R, 128) float32, depth, seg, fidx, n_voxels,
+    caches. Returns (feat (B, R, c) float32, depth, seg, fidx, n_voxels,
     n_valid, fidx_csr)."""
     import numpy as np
     import torch
@@ -278,7 +314,7 @@ def lift_inputs(dev, b, seed=7):
     logits = torch.from_numpy(rng.normal(size=(b, NCAM, d, fh, fw)).astype(np.float32)).to(dev)
     depth = torch.where(valid_f, torch.softmax(logits, 2).reshape(b, p), 0.0)
     fidx, csr = ls._feature_rows_on(NCAM, d, fh, fw, b, dev)
-    feat = torch.from_numpy(rng.normal(size=(b, NCAM * fh * fw, 128)).astype(np.float32)).to(dev)
+    feat = torch.from_numpy(rng.normal(size=(b, NCAM * fh * fw, c)).astype(np.float32)).to(dev)
     return (feat, depth, seg.to(torch.int32), fidx, GRID * GRID, int(valid_f.sum()), csr)
 
 
@@ -883,6 +919,382 @@ def check_kernels(dev):
     return rows, bwd_rows, None
 
 
+def lift_c64_checks(dev):
+    """Phase 2c: kernels 3 and 3b at Stack A's width, C=64 (rows of 128
+    bytes in bfloat16 and 256 in float32: lane groups of 8 and 16 slices), in
+    float32 and bfloat16; the forward at B=6 (train's batch) and B=1
+    (predict's), the backward at B=6. Each against its plain version with
+    phase 2's limits, repeated bit for bit, and timed as the C=128 rows are:
+    the wrapper's clock (CUDA events around back-to-back calls), device busy
+    time a call (profiler), the bound over the rows that live points read,
+    and `index_add_` as the forward's yardstick (the backward's is its plain
+    composite). Prints a `kernel_check` line each; returns (rows keyed by
+    (name, dtype, batch, output), failure message or None)."""
+    import numpy as np
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
+
+    c, rows, ok = STACK_A_C, {}, True
+
+    def busy_ms(fn, calls=20):
+        """Device busy time of one call, from a profile of `calls` calls back
+        to back (one profiled call alone at times lists none of its
+        kernels); None where the profile shows no device work."""
+        busy = device_profile(lambda: [fn() for _ in range(calls)])[0] / calls
+        return busy if busy > 0 else None
+
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    for b in (STACK_A_B, PREDICT_B):
+        feat, depth, seg, fidx, n, n_valid, csr = lift_inputs(dev, b, seed=17 + b, c=c)
+        p, r = depth.shape[1], feat.shape[1]
+        feat_rows = rows_read(fidx, r, depth != 0)
+        segflat = (seg.long() + torch.arange(b, device=dev)[:, None] * n).reshape(-1)
+        for dt, name_dt in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+            es, bf = (4, False) if dt == torch.float32 else (2, True)
+            fd = feat.to(dt)
+            kernel = lambda fd=fd: ls.fused_lift_splat(fd, depth, seg, fidx, n)
+            plain = lambda fd=fd: ls.fused_lift_splat_plain(fd, depth, seg, fidx, n)
+            lifted = (torch.gather(fd.float(), 1, fidx.long()[..., None].expand(-1, -1, c))
+                      * depth[..., None]).reshape(-1, c)
+            acc = torch.zeros(b * n, c, device=dev)
+            got, ref, again = kernel().float(), plain().float(), kernel().float()
+            err = float((got - ref).abs().max())
+            rel = err / max(float(ref.abs().max()), 1e-30)
+            repeats = bool(torch.equal(got, again))
+            tol = 2 ** -7 if bf else 1e-5
+            passed = bool(torch.isfinite(got).all()) and rel <= tol and repeats
+            ok &= passed
+            bms, by = bound(feat_rows * c * es + 3 * b * p * 4 + b * n * c * es, 2 * n_valid * c)
+            row = dict(name="lift_splat_c64", dtype=name_dt, batch=b, c=c, max_abs_err=err,
+                       max_rel_err=rel, rel_tol=tol, passed=passed, repeats_bit_for_bit=repeats,
+                       ms=time_ms(kernel, reps=50, warmup=10), device_busy_ms=busy_ms(kernel),
+                       plain_ms=time_ms(plain, reps=10, warmup=1),
+                       library_ms=time_ms(lambda: acc.zero_().index_add_(0, segflat, lifted)),
+                       bound_ms=bms, bound_by=by, rows_read=feat_rows, live_points=n_valid)
+            print("kernel_check " + json.dumps(row))
+            rows[("lift_splat_c64", name_dt, b, "out")] = row
+            del got, ref, again, lifted, acc
+    # the backward at B=6 over the cached CSR of the frustum's fidx
+    feat, depth, seg, fidx, n, n_valid, csr = lift_inputs(dev, STACK_A_B, seed=29, c=c)
+    b, p = depth.shape
+    r = feat.shape[1]
+    g = torch.from_numpy(np.random.default_rng(31).normal(size=(b, n, c)).astype(np.float32)).to(dev)
+    g_rows = rows_read(seg, n)
+    for dt, name_dt in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        es, bf = (4, False) if dt == torch.float32 else (2, True)
+        a = (feat.to(dt), depth, seg, fidx, g.to(dt))
+        kernel = lambda a=a: ls.fused_lift_splat_backward(*a, _fidx_csr=csr)
+        plain = lambda a=a: ls.fused_lift_splat_backward_plain(*a)
+        got, ref, again = kernel(), plain(), kernel()
+        repeats = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+        kms, busy = time_ms(kernel, reps=50, warmup=10), busy_ms(kernel)
+        pms = time_ms(plain, reps=10, warmup=1)
+        bms, by = bound(g_rows * c * es + 2 * b * r * c * es + 4 * b * p * 4,
+                        2 * c * (b * p + n_valid))
+        for out, x, y, tol in (("dfeat", got[0], ref[0], 2 ** -7 if bf else 1e-5),
+                               ("ddepth", got[1], ref[1], 1e-5)):
+            x, y = x.float(), y.float()
+            err = float((x - y).abs().max())
+            rel = err / max(float(y.abs().max()), 1e-30)
+            passed = bool(torch.isfinite(x).all()) and rel <= tol and repeats
+            ok &= passed
+            row = dict(name="lift_splat_backward_c64", output=out, dtype=name_dt, batch=b, c=c,
+                       max_abs_err=err, max_rel_err=rel, rel_tol=tol, passed=passed,
+                       repeats_bit_for_bit=repeats, ms=kms, device_busy_ms=busy, plain_ms=pms,
+                       library_ms=None, composite_ms=pms, bound_ms=bms, bound_by=by,
+                       rows_read=g_rows)
+            print("kernel_check " + json.dumps(row))
+            rows[("lift_splat_backward_c64", name_dt, b, out)] = row
+        del got, ref, again
+    return rows, None if ok else "a lift-splat kernel at C=64 disagrees with its plain version"
+
+
+def stack_a_config(family, **train):
+    """Stack A at the JAX CLI's defaults: EfficientNet-b4, cam_channels 64,
+    float32 (`cli.py:663`), 6 cameras at 128x352 into the 200x200 grid."""
+    from lss2_multimodal_nu_tpu_torch.config import Config, ModelConfig, TrainConfig
+
+    return Config(model=ModelConfig(family=family, effnet_variant="b4", cam_channels=STACK_A_C,
+                                    compute_dtype="float32"),
+                  train=TrainConfig(**train))
+
+
+def calibrate(model, inputs):
+    """Every batch norm's running statistics set to its batch statistics on
+    `inputs` (one train forward with momentum 1, dropout and drop-connect
+    off), then eval mode. After `perturb`, random weights then give
+    activations of order 1 throughout, as a trained model's do: with raw
+    random statistics they grow through the trunk and the ResNet body to BEV
+    logits of order 1e3, where float32's round-off alone would exceed the
+    card-against-CPU limits."""
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_without_dropout
+
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    train_without_dropout(model)
+    with torch.no_grad():
+        model(*inputs)
+    for m, mom in zip(bns, saved):
+        m.momentum = mom
+    return model.eval()
+
+
+def stack_a_models(dev, family, calib_inputs, seed=0, **train):
+    """(card model, CPU model) of a Stack A family with the same weights:
+    seeded, `perturb`ed, and calibrated on the card on `calib_inputs`."""
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+
+    cfg = stack_a_config(family, **train)
+    card = build_model(cfg, device=dev, seed=seed)
+    perturb(card, seed=seed + 1)
+    calibrate(card, calib_inputs)
+    cpu = build_model(cfg, device="cpu", seed=seed)
+    cpu.load_state_dict(card.state_dict())
+    return card, cpu
+
+
+def stack_a_eval(dev, wrappers):
+    """Phase 7: BevTxt's eval forward at full width (b4, C=64, float32) at
+    B=1 (predict's batch) and B=6, through `build_model`: one lift-splat
+    launch and nothing else of the port's kernels per forward, finite outputs
+    of the right shapes, no `cudaStreamSynchronize`; host-clock median of 10,
+    device busy, idle share, the stages (`encoder`, `lift_to_bev`,
+    `bevencode`, `txt_branch`) and peak memory. Then at B=1 the card's f32
+    forward of BevTxt, LSS and BevTxtOnlyBev against the CPU's (2e-3 on the
+    BEV, 1e-3 on act/desc), and BevTxt's bit for bit against a forward with
+    TF32 turned off by the caller. Returns (launches of the B=6 forward,
+    failure message or None)."""
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.ops._precision import full_float32
+
+    one = [torch.from_numpy(a).to(dev) for a in fake_inputs(PREDICT_B, seed=3)]
+    model, cpu_model = stack_a_models(dev, "bev_txt", one)
+    expected = {name: int(name == "lift_splat") for name in wrappers}
+    for b in (PREDICT_B, STACK_A_B):
+        inputs = [torch.from_numpy(a).to(dev) for a in fake_inputs(b, seed=4)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            model(*inputs)  # warm-up
+            torch.cuda.synchronize()
+            for f in wrappers.values():
+                f.launches = 0
+            bev, act, desc = model(*inputs)
+            torch.cuda.synchronize()
+            launches = {name: f.launches for name, f in wrappers.items()}
+            print(f"main path launches, Stack A BevTxt f32 forward B={b}: {launches}")
+            if launches != expected:
+                return launches, f"BevTxt B={b} launch counts {launches}, expected {expected}"
+            shapes = tuple(tuple(t.shape) for t in (bev, act, desc))
+            if shapes != ((b, 4, GRID, GRID), (b, 4), (b, 8)):
+                return launches, f"BevTxt B={b} output shapes {shapes}"
+            if not all(bool(torch.isfinite(t).all()) for t in (bev, act, desc)):
+                return launches, f"non-finite BevTxt B={b} output"
+            fwd = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                model(*inputs)
+                torch.cuda.synchronize()
+                fwd.append((time.perf_counter() - t1) * 1e3)
+            fwd.sort()
+            fwd_ms = fwd[len(fwd) // 2]
+            with full_float32():
+                cam = model.encode_cameras(inputs[0])
+                vox = model.lift_to_bev(cam, *inputs[1:])
+                bev = model.bevencode(vox)
+                stages = {
+                    "encoder": time_ms(lambda: model.encode_cameras(inputs[0]), reps=10),
+                    "lift_to_bev": time_ms(lambda: model.lift_to_bev(cam, *inputs[1:]), reps=10),
+                    "bevencode": time_ms(lambda: model.bevencode(vox), reps=10),
+                    "txt_branch": time_ms(lambda: model.txt_branch(bev, cam), reps=10),
+                }
+            busy_ms, summed_ms, top, syncs = device_profile(lambda: model(*inputs))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        idle = 1 - busy_ms / fwd_ms
+        print(f"Stack A BevTxt forward B={b} f32: {fwd_ms:.3f} ms median of 10 "
+              f"({fwd[0]:.3f}-{fwd[-1]:.3f}), {b / fwd_ms * 1e3:.2f} samples/s")
+        print(f"stages, BevTxt B={b} (ms, CUDA events): {json.dumps(stages)}")
+        print(f"profiled BevTxt B={b} forward: device busy {busy_ms:.3f} ms (kernel times summed "
+              f"{summed_ms:.3f}), idle share of the timed forward {idle:.3f}")
+        for name, ms, count in top:
+            print(f"  {ms:9.3f} ms {count:4d}x {name}")
+        print(f"host syncs in one BevTxt B={b} forward (profiler): {json.dumps(syncs)}")
+        print(f"peak device memory in phase 7, B={b}: {peak:.2f} GB")
+        if syncs["cudaStreamSynchronize"] or syncs["cudaMemcpy"]:
+            return launches, f"the BevTxt B={b} forward makes host syncs: {syncs}"
+        del inputs, cam, vox, bev, act, desc
+
+    tol = (2e-3, 1e-3, 1e-3)
+    cpu_one = [t.cpu() for t in one]
+    for family in ("bev_txt", "lss", "bev_txt_onlybev"):
+        if family != "bev_txt":
+            model, cpu_model = stack_a_models(dev, family, one)
+        with torch.inference_mode():
+            want = cpu_model(*cpu_one)
+            for f in wrappers.values():
+                f.launches = 0
+            got = model(*one)
+            n_launch = wrappers["lift_splat"].launches
+        want, got = ((want,), (got,)) if family == "lss" else (want, got)
+        got = [t.cpu() for t in got]
+        for name, a, b_, atol in zip(("bev", "act", "desc"), got, want, tol):
+            diff = float((a - b_).abs().max())
+            print(f"gpu vs cpu f32 {family} {name} B=1: max abs diff {diff:.3e} (atol {atol}), "
+                  f"max |cpu| {float(b_.abs().max()):.3e}")
+            if not diff <= atol:
+                return launches, f"GPU and CPU {family} forwards disagree on {name}"
+        if n_launch != 1:
+            return launches, f"{family} made {n_launch} lift-splat launches, not 1"
+        if family == "bev_txt":
+            matmul, cudnn_tf32 = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+            try:
+                with torch.inference_mode():
+                    off = [t.cpu() for t in model(*one)]
+            finally:
+                torch.backends.cudnn.allow_tf32 = cudnn_tf32
+                torch.set_float32_matmul_precision(matmul)
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, off))
+            print(f"card f32 BevTxt forward under {precision_flags()}: bit for bit equal to the "
+                  f"forward with TF32 turned off by the caller: {same}")
+            if not same:
+                return launches, "the BevTxt forward does not pin full float32"
+        del model, cpu_model
+    return launches, None
+
+
+def stack_a_train(dev, wrappers):
+    """Phase 8: BevTxt's train step at the JAX CLI's `train` defaults (B=6,
+    float32, lr 1e-4, wd 1e-8, clip 5.0, one parameter group, no schedule):
+    one lift-splat forward and one backward launch a step and nothing else
+    of the port's kernels; 5 steps on one batch that must move the loss by
+    more than 1e-3, everything finite; the median of 10 steps after 3 more,
+    its forward / backward / optimizer split, device busy and peak memory;
+    no `cudaStreamSynchronize` or `cudaMemcpy` in a profiled step. Then one
+    step at B=1, dropout and drop-connect off, on the card against the CPU:
+    loss, grad_norm and the gradients of the leaves around the kernel,
+    beside the card's own spread from weights moved by 1e-7. Returns
+    (launches of one step, failure message or None)."""
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+    from lss2_multimodal_nu_tpu_torch.train.state import build_optimizer
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_step, train_without_dropout
+
+    train = dict(batch_size=STACK_A_B, lr=1e-4, weight_decay=1e-8, max_grad_norm=5.0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = train_batch(dev, STACK_A_B, seed=5)
+    inputs = [batch[k] for k in ("imgs", "rots", "trans", "intrins", "post_rots", "post_trans")]
+    model, _ = stack_a_models(dev, "bev_txt", inputs, **train)
+    opt, sched = build_optimizer(model.cfg, model.train())
+    if len(opt.param_groups) != 1 or sched.get_last_lr() != [1e-4]:
+        return None, f"BevTxt trains in {len(opt.param_groups)} groups at {sched.get_last_lr()}"
+    for f in wrappers.values():
+        f.launches = 0
+    metrics = [train_step(model, opt, sched, batch, 0)]
+    torch.cuda.synchronize()
+    launches = {name: f.launches for name, f in wrappers.items()}
+    expected = {name: int(name in ("lift_splat", "lift_splat_backward")) for name in wrappers}
+    print(f"Stack A BevTxt train step launches: {launches}")
+    if launches != expected:
+        return launches, f"BevTxt train launch counts {launches}, expected {expected}"
+    for step in range(1, 5):
+        metrics.append(train_step(model, opt, sched, batch, step))
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    print(f"BevTxt train B={STACK_A_B} f32, 5 steps on one batch: loss {losses}, grad_norm {norms}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        return launches, "non-finite loss or grad_norm in the BevTxt train step"
+    if not abs(losses[-1] - losses[0]) > 1e-3:
+        return launches, f"the BevTxt loss did not move in 5 steps: {losses}"
+    if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
+        return launches, "non-finite BevTxt weights after 5 steps"
+    step = 5
+    for _ in range(3):
+        train_step(model, opt, sched, batch, step)
+        step += 1
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        train_step(model, opt, sched, batch, step)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        step += 1
+    times.sort()
+    step_ms = times[len(times) // 2]
+    split = split_step_ms(model, opt, sched, batch, step)
+    step += 5
+    busy_ms, summed_ms, top, syncs = device_profile(
+        lambda: train_step(model, opt, sched, batch, step), top=15)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"BevTxt train step B={STACK_A_B} f32: {step_ms:.3f} ms median of 10 "
+          f"({times[0]:.3f}-{times[-1]:.3f}), {STACK_A_B / step_ms * 1e3:.2f} samples/s")
+    print(f"BevTxt train step split (ms, CUDA events, median of 5): {json.dumps(split)}")
+    print(f"profiled BevTxt train step: device busy {busy_ms:.3f} ms (kernel times summed "
+          f"{summed_ms:.3f}), idle share of the timed step {1 - busy_ms / step_ms:.3f}")
+    for name, ms, count in top:
+        print(f"  {ms:9.3f} ms {count:4d}x {name}")
+    print(f"host syncs in one BevTxt train step (profiler): {json.dumps(syncs)}")
+    print(f"peak device memory in phase 8: {peak:.2f} GB")
+    if syncs["cudaStreamSynchronize"] or syncs["cudaMemcpy"]:
+        return launches, f"the BevTxt train step makes host syncs: {syncs}"
+    del model, opt, sched, batch, inputs, metrics
+    torch.cuda.empty_cache()
+
+    # one step at B=1, dropout and drop-connect off: the card against the CPU,
+    # and against itself from weights moved by 1e-7 of each tensor's mean |value|
+    cpu_batch = train_batch("cpu", 1, seed=3)
+    gpu_batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    calib = [gpu_batch[k] for k in ("imgs", "rots", "trans", "intrins", "post_rots", "post_trans")]
+    gpu_model, cpu_model = stack_a_models(dev, "bev_txt", calib, **train)
+    ctl_model = build_model(gpu_model.cfg, device=dev)
+    ctl_model.load_state_dict(gpu_model.state_dict())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in ctl_model.parameters():
+            p.add_(1e-7 * p.abs().mean() * torch.randn(p.shape, generator=gen).to(dev))
+    out = {}
+    for label, m, b_ in (("cpu", cpu_model, cpu_batch), ("gpu", gpu_model, gpu_batch),
+                         ("ctl", ctl_model, gpu_batch)):
+        o, s = build_optimizer(m.cfg, train_without_dropout(m))
+        out[label] = train_step(m, o, s, b_, 0)
+    for k, rtol in (("loss", 1e-5), ("grad_norm", 2e-3)):
+        a, b_ = float(out["gpu"][k]), float(out["cpu"][k])
+        c_ = float(out["ctl"][k])
+        print(f"gpu vs cpu f32 BevTxt train {k}: {a:.6f} vs {b_:.6f}, rel diff "
+              f"{abs(a - b_) / abs(b_):.3e} (rtol {rtol}); moved card {abs(c_ - a) / abs(a):.3e}")
+        if not abs(a - b_) <= rtol * abs(b_):
+            return launches, f"GPU and CPU BevTxt train steps disagree on {k}"
+    leaves = [n for n, _ in cpu_model.named_parameters() if n in STACK_A_LEAVES]
+    vs_cpu = grad_diffs(gpu_model, cpu_model, leaves)
+    control = grad_diffs(ctl_model, gpu_model, leaves)
+    bad = []
+    for n in leaves:
+        (rel, nrel, scale), (crel, cnrel, _) = vs_cpu[n], control[n]
+        tol = STACK_A_GRAD_TOL_LINEAR if n.startswith("camencode") else GRAD_TOL
+        print(f"gpu vs cpu f32 BevTxt grad {n}: max |cpu| {scale:.3e}, max diff / max |cpu| "
+              f"{rel:.3e} (tol {tol}), norm of diff / norm {nrel:.3e} (tol {GRAD_NORM_TOL}); "
+              f"moved card vs card {crel:.3e}, {cnrel:.3e}")
+        if not (rel <= tol and nrel <= GRAD_NORM_TOL):
+            bad.append(n)
+    if bad:
+        return launches, f"GPU and CPU BevTxt gradients disagree on {bad}"
+    return launches, None
+
+
 def precision_flags():
     """torch's process-wide float32 precision flags, as a short string."""
     import torch
@@ -941,6 +1353,9 @@ def main() -> int:
     # ---- 2, 2b. kernels against their plain versions, in full float32
     with full_float32():
         rows, bwd_rows, err = check_kernels(dev)
+        if not err:
+            # ---- 2c. kernels 3 and 3b at Stack A's width, C=64
+            c64_rows, err = lift_c64_checks(dev)
     if err:
         return _fail(err)
 
@@ -1064,6 +1479,8 @@ def main() -> int:
         print(f"  {ms:9.3f} ms {count:4d}x {name}")
     print(f"host syncs in one train step (profiler): {json.dumps(syncs)}")
     print(f"peak device memory in phase 5: {peak:.2f} GB")
+    if syncs["cudaStreamSynchronize"] or syncs["cudaMemcpy"]:
+        return _fail(f"the train step makes host syncs: {syncs}")
     del model, opt, sched, batch, metrics
 
     # ---- 6. one float32 train step at B=1, dropout off: the card against the
@@ -1144,6 +1561,22 @@ def main() -> int:
             return _fail(f"the train step under {label} differs from the one with TF32 turned "
                          "off by the caller: it does not pin full float32")
 
+    del cpu_model, gpu_model, ctl_model, off_model, high_model
+    del cpu_opt, gpu_opt, ctl_opt, off_opt, high_opt
+    torch.cuda.empty_cache()
+
+    # ---- 7. Stack A: BevTxt's eval forward at full width, B=1 and B=6, float32;
+    # LSS and BevTxtOnlyBev at B=1 against the CPU
+    stack_a_launches, err = stack_a_eval(dev, wrappers)
+    if err:
+        return _fail(err)
+    torch.cuda.empty_cache()
+
+    # ---- 8. Stack A: BevTxt's train step at the JAX CLI's train defaults
+    stack_a_train_launches, err = stack_a_train(dev, wrappers)
+    if err:
+        return _fail(err)
+
     kernels = []
     backward_outputs = {"deformable_sample_backward": ("dv", "dlx", "dly", "dattn"),
                         "lift_splat_backward": ("dfeat", "ddepth")}
@@ -1160,6 +1593,24 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             composite_ms=row.get("composite_ms"),
+        ))
+    # Stack A's lift-splat at C=64: the float32 B=6 rows (the CLI's default
+    # precision and train's batch); launches from phases 7 (forward) and 8
+    for name, out, n_launch in (("lift_splat_c64", "out", stack_a_launches["lift_splat"]),
+                                ("lift_splat_backward_c64", "dfeat",
+                                 stack_a_train_launches["lift_splat_backward"])):
+        src, replaces = KERNELS[name[:-4]][:2]
+        row = c64_rows[(name, "float32", STACK_A_B, out)]
+        if name == "lift_splat_backward_c64":
+            row = dict(row, max_abs_err=max(row["max_abs_err"], c64_rows[
+                (name, "float32", STACK_A_B, "ddepth")]["max_abs_err"]))
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces, launches=n_launch,
+            launches_eval_forward=stack_a_launches[name[:-4]],
+            launches_train_step=stack_a_train_launches[name[:-4]], dtype="float32",
+            batch=STACK_A_B, max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], composite_ms=row.get("composite_ms"),
         ))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,21 @@
-"""Model construction by family. This slice of the port builds the flagship
-family only; the others are listed in ROADMAP.md."""
+"""Model construction by family. The port builds the flagship and Stack A;
+the family it does not build yet is listed in ROADMAP.md."""
 from __future__ import annotations
 
 import torch
 
 from ..config import Config
+from .bev_txt import BevTxt, BevTxtOnlyBev
+from .lss import LSS
 from .vovnet_transformer import VoVNetBEVTransformer
 
-_NOT_YET = {
-    "lss": "ROADMAP.md queue 1 item 11 (Stack A)",
-    "bev_txt": "ROADMAP.md queue 1 item 11 (Stack A)",
-    "bev_txt_onlybev": "ROADMAP.md queue 1 item 11 (Stack A)",
-    "vovnet_pretrain": "ROADMAP.md queue 1 item 12 (pretrain family)",
+FAMILIES = {
+    "vovnet_transformer": VoVNetBEVTransformer,
+    "lss": LSS,
+    "bev_txt": BevTxt,
+    "bev_txt_onlybev": BevTxtOnlyBev,
 }
+_NOT_YET = {"vovnet_pretrain": "ROADMAP.md queue 1 item 13 (pretrain family)"}
 
 
 def build_model(cfg: Config, device="cuda", seed: int = 0) -> torch.nn.Module:
@@ -21,9 +24,9 @@ def build_model(cfg: Config, device="cuda", seed: int = 0) -> torch.nn.Module:
     family = cfg.model.family
     if family in _NOT_YET:
         raise NotImplementedError(f"family {family!r} is not ported yet: {_NOT_YET[family]}")
-    if family != "vovnet_transformer":
+    if family not in FAMILIES:
         raise ValueError(f"unknown model family {family!r}")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = VoVNetBEVTransformer(cfg)
+        model = FAMILIES[family](cfg)
     return model.to(device).eval()

@@ -10,11 +10,13 @@ fault e).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.sampling import resize_bilinear
 
 
 def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = None,
@@ -54,6 +56,12 @@ def max_pool_ceil(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, ceil_mode=True)
 
 
+def max_pool(x: torch.Tensor, window: Tuple[int, int], stride: Tuple[int, int]) -> torch.Tensor:
+    """`nn.MaxPool2d(window, stride)` without padding or ceil mode (BevPost's
+    (5, 4) pool)."""
+    return F.max_pool2d(x, window, stride)
+
+
 def global_avg_pool(x: torch.Tensor, keepdim: bool = True) -> torch.Tensor:
     return x.mean(dim=(2, 3), keepdim=keepdim)
 
@@ -90,3 +98,40 @@ class ConvBNReLU(nn.Sequential):
 
     def forward(self, x):
         return conv_bn(x, self[0], self[1], relu=True)
+
+
+class DropConnect(nn.Module):
+    """Per-sample stochastic depth (efficientnet_pytorch's `drop_connect`):
+    in training, each sample's branch is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), the mask drawn from torch's default generator
+    on x's device (the train step seeds it per step); the identity in
+    eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device) < keep
+        return x / keep * mask.to(x.dtype)
+
+
+class Up(nn.Module):
+    """Bilinear resize of x1 to the skip x2's size (align_corners=True; the
+    original's x`scale` upsampling where sizes divide), concat [x2, x1],
+    then two conv-BN-ReLU (`conv.0/1`, `conv.3/4`, the original's names)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = nn.Sequential(
+            conv2d(cin, cout, 3, bias=False), nn.BatchNorm2d(cout), nn.ReLU(inplace=True),
+            conv2d(cout, cout, 3, bias=False), nn.BatchNorm2d(cout), nn.ReLU(inplace=True))
+
+    def forward(self, x1, x2):
+        x1 = resize_bilinear(x1, x2.shape[-2:], align_corners=True)
+        x = torch.cat([x2, x1], dim=1)
+        x = conv_bn(x, self.conv[0], self.conv[1], relu=True)
+        return conv_bn(x, self.conv[3], self.conv[4], relu=True)

@@ -1,12 +1,14 @@
 """JAX weights -> the port's state_dict.
 
-`state_dict_from_jax(params, batch_stats, **flags)` takes the JAX package's
-`{params, batch_stats}` tree of the flagship model as numpy arrays and
-returns the port's `state_dict`: conv kernels HWIO -> OIHW, dense kernels
-(in, out) -> (out, in), separate q/k/v projections re-packed into
-`in_proj_weight` / `in_proj_bias`, batch-norm scale/bias/mean/var ->
+`state_dict_from_jax(params, batch_stats, family, effnet_variant, **flags)`
+takes the JAX package's `{params, batch_stats}` tree of a model as numpy
+arrays and returns the port's `state_dict`: conv kernels HWIO -> OIHW (a
+depthwise (k, k, 1, C) kernel becomes (C, 1, k, k) by the same transpose),
+dense kernels (in, out) -> (out, in), separate q/k/v projections re-packed
+into `in_proj_weight` / `in_proj_bias`, batch-norm scale/bias/mean/var ->
 weight/bias/running_mean/running_var. It inverts the JAX package's torch
-porter for the `vovnet_transformer` family and carries its own mapping.
+porter for the `vovnet_transformer`, `lss`, `bev_txt` and `bev_txt_onlybev`
+families and carries its own mapping.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from .nn.efficientnet import trunk_blocks
 from .nn.vovnet import TIMM_CONFIGS
 
 Tree = Dict[str, Any]
@@ -59,6 +62,70 @@ class _Rules:
         self.rules.append((jax, f"{torch_key}.in_proj_weight", "inproj_w"))
         self.rules.append((jax, f"{torch_key}.in_proj_bias", "inproj_b"))
         self.linear(f"{jax}/out_proj", f"{torch_key}.out_proj")
+
+
+def _aspp(r: _Rules, jax: str, t: str):
+    r.conv_bn(f"{jax}/conv1x1", f"{t}.convs.0.0", f"{t}.convs.0.1")
+    for i in range(3):
+        r.conv_bn(f"{jax}/aspp{i}/conv", f"{t}.convs.{i + 1}.0", f"{t}.convs.{i + 1}.1")
+    r.conv_bn(f"{jax}/pool_conv", f"{t}.convs.4.1", f"{t}.convs.4.2")
+    r.conv_bn(f"{jax}/project", f"{t}.project.0", f"{t}.project.1")
+
+
+def _up(r: _Rules, jax: str, torch_key: str):
+    r.conv_bn(f"{jax}/conv1", f"{torch_key}.conv.0", f"{torch_key}.conv.1")
+    r.conv_bn(f"{jax}/conv2", f"{torch_key}.conv.3", f"{torch_key}.conv.4")
+
+
+def _lss_rules(r: _Rules, jax: str, variant: str):
+    """LSS's modules under the JAX prefix `jax` ("" or "lss/"); the port
+    holds them at the top level in every Stack A family."""
+    t = "encoder.trunk"
+    r.conv_bn(f"{jax}encoder/trunk/stem", f"{t}._conv_stem", f"{t}._bn0")
+    for idx, (_, _, expand, *_rest) in enumerate(trunk_blocks(variant)[2]):
+        jb, tb = f"{jax}encoder/trunk/block{idx}", f"{t}._blocks.{idx}"
+        if expand != 1:
+            r.conv_bn(f"{jb}/expand", f"{tb}._expand_conv", f"{tb}._bn0")
+        r.conv_bn(f"{jb}/depthwise", f"{tb}._depthwise_conv", f"{tb}._bn1")
+        r.conv(f"{jb}/se_reduce", f"{tb}._se_reduce", bias=True)
+        r.conv(f"{jb}/se_expand", f"{tb}._se_expand", bias=True)
+        r.conv_bn(f"{jb}/project", f"{tb}._project_conv", f"{tb}._bn2")
+    _up(r, f"{jax}encoder/up1", "encoder.up1")
+    r.conv(f"{jax}camencode/depthnet", "camencode.depthnet", bias=True)
+    j, t = f"{jax}bevencode", "bevencode"
+    r.conv_bn(f"{j}/conv1", f"{t}.conv1", f"{t}.bn1")
+    for layer in (1, 2, 3):
+        for i in range(2):
+            jb, tb = f"{j}/layer{layer}_{i}", f"{t}.layer{layer}.{i}"
+            r.conv_bn(f"{jb}/conv1", f"{tb}.conv1", f"{tb}.bn1")
+            r.conv(f"{jb}/conv2", f"{tb}.conv2")
+            r.bn(f"{jb}/bn2", f"{tb}.bn2")
+            if layer > 1 and i == 0:
+                r.conv_bn(f"{jb}/downsample", f"{tb}.downsample.0", f"{tb}.downsample.1")
+    _up(r, f"{j}/up1", f"{t}.up1")
+    r.conv_bn(f"{j}/up2_conv", f"{t}.up2.1", f"{t}.up2.2")
+    r.conv(f"{j}/up2_out", f"{t}.up2.4", bias=True)
+
+
+def _stack_a_rules(family: str, variant: str) -> _Rules:
+    r = _Rules()
+    _lss_rules(r, "" if family == "lss" else "lss/", variant)
+    if family == "lss":
+        return r
+    r.conv_bn("bevpost/conv", "bevpost.post.0", "bevpost.post.1")
+    if family == "bev_txt_onlybev":
+        r.linear("embeder_bev/fc", "embeder_bev.1")
+        r.linear("predictor_bev1/fc", "predictor_bev1.0")
+        r.linear("predictor_bev2/fc", "predictor_bev2.0")
+        return r
+    _aspp(r, "sceneunder/aspp", "sceneunder.0")
+    for name in ("embeder_f1", "embeder_lr1"):
+        r.conv_bn(f"{name}/conv", f"{name}.0", f"{name}.1")
+    for name in ("embeder_f2", "embeder_lr2"):
+        r.linear(f"{name}/fc", f"{name}.1")
+    for head in ("predictorf1", "predictorf2", "predictorlr"):
+        r.linear(f"{head}/fc", f"{head}.0")
+    return r
 
 
 def _flagship_rules(model_name="vovnet39", lss_version="v2", use_camera_attn=True,
@@ -107,13 +174,7 @@ def _flagship_rules(model_name="vovnet39", lss_version="v2", use_camera_attn=Tru
     r.conv("bev_encoder/seg_out", "bev_encoder.seg_head.6", bias=True)
     for name in ("scale1", "scale2", "fusion"):
         seq(f"feature_pyramid/{name}", f"feature_pyramid.{name}")
-    aj, at = "sceneunder/aspp", "sceneunder.0"
-    seq(f"{aj}/conv1x1", f"{at}.convs.0", bias=False)
-    for i in range(3):
-        seq(f"{aj}/aspp{i}/conv", f"{at}.convs.{i + 1}", bias=False)
-    r.conv(f"{aj}/pool_conv/conv", f"{at}.convs.4.1")
-    r.bn(f"{aj}/pool_conv/bn", f"{at}.convs.4.2")
-    seq(f"{aj}/project", f"{at}.project", bias=False)
+    _aspp(r, "sceneunder/aspp", "sceneunder.0")
     if use_camera_attn:
         r.copy("camera_transformer/cam_embed/embedding", "camera_transformer.cam_embed.weight")
         r.mha("camera_transformer/self_attn", "camera_transformer.self_attn")
@@ -141,12 +202,23 @@ def _get(tree: Tree, path: str) -> np.ndarray:
     return np.asarray(node, dtype=np.float32)
 
 
-def state_dict_from_jax(params: Tree, batch_stats: Tree, model_name: str = "vovnet39",
-                        lss_version: str = "v2", use_camera_attn: bool = True,
-                        use_cross_attn: bool = True) -> Dict[str, torch.Tensor]:
-    """The port's state_dict (float32 CPU tensors) from the JAX flagship's
-    variables; the flags are those of `ModelConfig`."""
-    rules = _flagship_rules(model_name, lss_version, use_camera_attn, use_cross_attn)
+STACK_A = ("lss", "bev_txt", "bev_txt_onlybev")
+
+
+def state_dict_from_jax(params: Tree, batch_stats: Tree, family: str = "vovnet_transformer",
+                        effnet_variant: str = "b4", **flagship_flags) -> Dict[str, torch.Tensor]:
+    """The port's state_dict (float32 CPU tensors) from the JAX model's
+    variables. `family` is `ModelConfig.family`; Stack A's take
+    `effnet_variant`, the flagship its flags `model_name` (`vovnet_type`),
+    `lss_version`, `use_camera_attn` and `use_cross_attn`."""
+    if family in STACK_A:
+        if flagship_flags:
+            raise TypeError(f"family {family!r} takes no flags {sorted(flagship_flags)}")
+        rules = _stack_a_rules(family, effnet_variant)
+    elif family == "vovnet_transformer":
+        rules = _flagship_rules(**flagship_flags)
+    else:
+        raise ValueError(f"no weight mapping for family {family!r}")
     sd: Dict[str, torch.Tensor] = {}
     for jax, key, kind in rules.rules:
         if kind == "count":

@@ -5,8 +5,8 @@
 decay to the gradient before the moments (coupled L2), as the JAX package's
 `optax.add_decayed_weights` before `scale_by_adam` does. The flagship trains
 in two parameter groups: `backbone`, `depth_net`, `cam_encode` and
-`bev_encoder` at lr * backbone_lr_mult, the rest at lr (the families that
-train in one group are not ported yet). The warmup-cosine schedule is a
+`bev_encoder` at lr * backbone_lr_mult, the rest at lr. Every other family
+trains in one group at lr. The warmup-cosine schedule is a
 `LambdaLR` stepped once per batch, so step k's rate is lr *
 `warmup_cosine_multiplier(...)(k)`, the JAX package's
 `warmup_cosine_schedule(lr, ...)(k)`: 0 at step 0 under warmup, as optax's
@@ -43,7 +43,8 @@ def warmup_cosine_multiplier(warmup_steps: int, total_steps: int,
 
 def build_optimizer(cfg: Config, model: torch.nn.Module, steps_per_epoch: Optional[int] = None
                     ) -> Tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
-    """(Adam, its per-batch LambdaLR) over the model's parameters; with
+    """(Adam, its per-batch LambdaLR) over the model's parameters, in the
+    family's parameter groups; with
     `cfg.train.use_schedule` the schedule needs `steps_per_epoch`, without it
     the rates stay constant."""
     tc = cfg.train
@@ -54,11 +55,14 @@ def build_optimizer(cfg: Config, model: torch.nn.Module, steps_per_epoch: Option
                                         tc.num_epochs * steps_per_epoch, tc.min_lr)
     else:
         mult = lambda step: 1.0
-    low, high = [], []
-    for name, p in model.named_parameters():
-        (low if name.split(".")[0] in PRETRAINED_PREFIXES else high).append(p)
-    groups = [{"params": low, "lr": tc.lr * tc.backbone_lr_mult},
-              {"params": high, "lr": tc.lr}]
+    if cfg.model.family == "vovnet_transformer":
+        low, high = [], []
+        for name, p in model.named_parameters():
+            (low if name.split(".")[0] in PRETRAINED_PREFIXES else high).append(p)
+        groups = [{"params": low, "lr": tc.lr * tc.backbone_lr_mult},
+                  {"params": high, "lr": tc.lr}]
+    else:
+        groups = [{"params": list(model.parameters()), "lr": tc.lr}]
     opt = torch.optim.Adam(groups, lr=tc.lr, betas=(0.9, 0.999), eps=1e-8,
                            weight_decay=tc.weight_decay)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, mult)

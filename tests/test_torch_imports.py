@@ -51,7 +51,7 @@ def test_port_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 20  # every module of the port
+    assert int(r.stdout.split()[-1]) >= 34  # every module of the port, Stack A's included
 
 
 def _run_chip_smoke(script: Path):

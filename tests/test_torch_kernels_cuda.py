@@ -10,9 +10,13 @@ their weights' split bit for bit against `ops/_tf32.py`. The lift-splat
 forward and backward with a voxel of 5000 points and a feature row of none,
 repeated bit for bit, their index preparation against the CPU's, their
 refusal of rows that are no whole number of 16-byte slices, and no host
-sync in a second call. Plus the whole model in float32 on the card against
-the CPU at a 30x30 BEV grid, in eval and for one train step with its
-gradients, with TF32 turned off by the caller and under torch's defaults.
+sync in a second call; both again at Stack A's width, C=64 (B=1 and 3, a
+voxel of one point, no live point at all), and through `lift_splat` with
+C=64 and C=128 alternating on the frustum's one cached CSR. Plus the whole
+flagship in float32 on the card against the CPU at a 30x30 BEV grid, in
+eval and for one train step with its gradients, with TF32 turned off by the
+caller and under torch's defaults; and Stack A's BevTxt at B=1 on the card
+against the CPU.
 
 Marked `cuda`; each test skips without a card. On the card, without JAX
 (this file imports none, and the suite's conftest imports JAX):
@@ -567,14 +571,14 @@ def _small_models(dev, moved=False):
     return cpu, card, other
 
 
-def _camera_args(b=2, n=6):
+def _camera_args(b=2, n=6, h=32, w=96):
     rng = np.random.default_rng(5)
-    imgs = rng.normal(size=(b, n, 3, 32, 96)).astype(np.float32)
+    imgs = rng.normal(size=(b, n, 3, h, w)).astype(np.float32)
     rots = np.broadcast_to(np.eye(3, dtype=np.float32), (b, n, 3, 3)).copy()
     trans = rng.normal(0, 1, (b, n, 3)).astype(np.float32)
     intr = np.broadcast_to(np.array([[1266.0, 0, 800.0], [0, 1266.0, 450.0], [0, 0, 1.0]],
                                     np.float32), (b, n, 3, 3)).copy()
-    post_r = np.broadcast_to(np.eye(3, dtype=np.float32) * (96 / 1600.0), (b, n, 3, 3)).copy()
+    post_r = np.broadcast_to(np.eye(3, dtype=np.float32) * (w / 1600.0), (b, n, 3, 3)).copy()
     post_r[..., 2, 2] = 1.0
     post_t = np.zeros((b, n, 3), np.float32)
     return [torch.from_numpy(a) for a in (imgs, rots, trans, intr, post_r, post_t)]
@@ -685,3 +689,147 @@ def test_train_step_card_matches_cpu(request, flags):
         assert torch.equal(got["loss"], m_off["loss"])
         pin = _relative_grad_diffs(card, off, top)
         assert max(pin.values()) <= 1e-4, max(pin.items(), key=lambda kv: kv[1])
+
+
+def _c64_operands(dev, dtype, b, seed, live=True):
+    """Stack A's lift-splat width, C=64 (rows of 128 bytes in bfloat16, 256 in
+    float32: lane groups of 8 and 16 slices), B=b, 1001 points (off every
+    lane group), 30% depth-0 points with seg 0 as `lift_splat` prepares
+    them, and voxel 49 holding exactly one point per batch element; with
+    `live` False, every depth is 0."""
+    rng, g, u = _rng_tensors(dev, seed)
+    r, p, c, nv = 17, 1001, 64, 50
+    depth = u(b, p) * (u(b, p) > 0.3) if live else torch.zeros(b, p, device=dev)
+    seg = torch.from_numpy(rng.integers(0, nv - 1, (b, p)).astype(np.int32)).to(dev)
+    if live:
+        depth[:, 0] = 0.5
+        seg[:, 0] = nv - 1
+    seg = torch.where(depth != 0, seg, 0)
+    fidx = torch.from_numpy(rng.integers(0, r, (b, p)).astype(np.int32)).to(dev)
+    return g(b, r, c).to(dtype), depth, seg, fidx, nv, g(b, nv, c).to(dtype)
+
+
+def _check_backward(dfeat, ddepth, want_feat, want_depth, dtype):
+    tol_feat = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for name, a, b, tol in (("dfeat", dfeat, want_feat, tol_feat),
+                            ("ddepth", ddepth, want_depth, 1e-5)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 3])
+def test_lift_splat_c64_ragged(dev, dtype, b):
+    """Forward and backward at C=64 against their plain versions (phase 2's
+    limits), repeated bit for bit; the voxel of one point gets that point's
+    weighted row."""
+    feat, depth, seg, fidx, nv, cot = _c64_operands(dev, dtype, b, seed=40 + b)
+    f = ls.fused_lift_splat
+    _check(lambda: f(feat, depth, seg, fidx, nv),
+           lambda: ls.fused_lift_splat_plain(feat, depth, seg, fidx, nv),
+           1e-5 if dtype == torch.float32 else 2 ** -7, f)
+    out = f(feat, depth, seg, fidx, nv)
+    assert torch.equal(out, f(feat, depth, seg, fidx, nv))
+    one = (feat[torch.arange(b), fidx[:, 0].long()].float() * 0.5).to(dtype)
+    assert torch.equal(out[:, nv - 1], one)
+    before = ls.fused_lift_splat_backward.launches
+    dfeat, ddepth = ls.fused_lift_splat_backward(feat, depth, seg, fidx, cot)
+    torch.cuda.synchronize()
+    assert ls.fused_lift_splat_backward.launches == before + 1
+    _check_backward(dfeat, ddepth, *ls.fused_lift_splat_backward_plain(feat, depth, seg, fidx, cot),
+                    dtype)
+    again = ls.fused_lift_splat_backward(feat, depth, seg, fidx, cot)
+    assert torch.equal(dfeat, again[0]) and torch.equal(ddepth, again[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lift_splat_c64_no_live_points(dev, dtype):
+    """No point with a non-zero depth: the forward writes zeros everywhere,
+    the backward a zero dfeat and every point's ddepth (the dot of its g and
+    feature rows) as its plain version does."""
+    feat, depth, seg, fidx, nv, cot = _c64_operands(dev, dtype, 2, seed=44, live=False)
+    out = ls.fused_lift_splat(feat, depth, seg, fidx, nv)
+    torch.cuda.synchronize()
+    assert out.shape == (2, nv, 64) and not bool(out.any())
+    dfeat, ddepth = ls.fused_lift_splat_backward(feat, depth, seg, fidx, cot)
+    assert not bool(dfeat.any()) and bool(ddepth.any())
+    _check_backward(dfeat, ddepth, *ls.fused_lift_splat_backward_plain(feat, depth, seg, fidx, cot),
+                    dtype)
+
+
+def test_lift_splat_widths_alternate(dev):
+    """Stack A (C=64) and the flagship (C=128) share the frustum's shape (6
+    cameras, 41 depth bins, 8x22), so `lift_splat` serves both from one
+    cached fidx and CSR: forward and backward at 64, 128, 64, 128 in one
+    process, each against the CPU, and the cache holds one entry for the
+    shape."""
+    rng = np.random.default_rng(46)
+    b, n, d, fh, fw, nx = 2, 6, 41, 8, 22, (200, 200, 1)
+    idx = np.stack([rng.integers(0, 200, (b, n, d, fh, fw)), rng.integers(0, 200, (b, n, d, fh, fw)),
+                    np.zeros((b, n, d, fh, fw), np.int64)], -1).astype(np.int32)
+    valid = rng.random((b, n, d, fh, fw)) < 0.6
+    logits = torch.from_numpy(rng.normal(size=(b, n, d, fh, fw)).astype(np.float32))
+    ls._feature_rows_on.cache_clear()
+    for c in (64, 128, 64, 128):
+        feat = torch.from_numpy(rng.normal(size=(b, n, c, fh, fw)).astype(np.float32))
+        cot = torch.from_numpy(rng.normal(size=(b, c, 200, 200)).astype(np.float32))
+        results = []
+        for device in ("cpu", dev):
+            f = feat.clone().to(device).requires_grad_()
+            lg = logits.clone().to(device).requires_grad_()
+            out = ls.lift_splat(f, torch.softmax(lg, 2), torch.from_numpy(idx).to(device),
+                                torch.from_numpy(valid).to(device), nx)
+            (out * cot.to(device)).sum().backward()
+            results.append([t.detach().cpu() for t in (out, f.grad, lg.grad)])
+        for name, a, w in zip(("bev", "dfeat", "dlogits"), results[1], results[0]):
+            err = float((a - w).abs().max())
+            assert err <= 1e-5 * float(w.abs().max()), (c, name, err)
+    assert ls._feature_rows_on.cache_info().currsize == 2  # one shape, on the CPU and the card
+
+
+def _stack_a_models(dev, family="bev_txt"):
+    """Stack A at b0 with C=64 on the CPU and the card, same weights: random
+    batch-norm affines, running statistics set to the batch statistics of
+    one train forward at `_stack_a_args` (so activations stay of order 1, as
+    in a trained model)."""
+    cfg = Config(model=ModelConfig(family=family, effnet_variant="b0"))
+    cpu = build_model(cfg, device="cpu", seed=6)
+    gen = torch.Generator().manual_seed(7)
+    bns = [m for m in cpu.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        for m in bns:
+            m.weight.copy_(0.5 + torch.rand(m.weight.shape, generator=gen))
+            m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+            m.momentum = 1.0
+        tsteps.train_without_dropout(cpu)(*_stack_a_args())
+    for m in bns:
+        m.momentum = 0.1 if m.eps == 1e-5 else 0.01
+    cpu.eval()
+    card = build_model(cfg, device=dev, seed=6)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _stack_a_args(b=1):
+    return _camera_args(b, h=128, w=352)
+
+
+@pytest.mark.parametrize("flags", FLAGS)
+def test_bev_txt_card_matches_cpu(request, flags):
+    """BevTxt (b0, C=64, 6 cameras at 128x352, the 200x200 grid) at B=1 on
+    the card (lift-splat) against the CPU (plain versions): 2e-3 on the BEV,
+    1e-3 on act/desc; one lift-splat launch; cuDNN on again after the BEV
+    decoder's 200x200 conv, which runs without it in float32."""
+    dev = _card(request, flags)
+    cpu, card = _stack_a_models(dev)
+    args = _stack_a_args()
+    before = ls.fused_lift_splat.launches
+    with torch.inference_mode():
+        want = cpu(*args)
+        got = [t.cpu() for t in card(*[a.to(dev) for a in args])]
+    assert ls.fused_lift_splat.launches == before + 1 and torch.backends.cudnn.enabled
+    assert got[0].shape == (1, 4, 200, 200) and float(want[0].abs().max()) > 0.1
+    for g_, w_, atol in zip(got, want, (2e-3, 1e-3, 1e-3)):
+        torch.testing.assert_close(g_, w_, atol=atol, rtol=0)

@@ -482,7 +482,7 @@ def test_confusion_matrix_and_f1_match_jax():
 
 
 def test_other_families_have_no_loss_yet():
-    cfg = tconfig.Config(model=tconfig.ModelConfig(family="lss"))
+    cfg = tconfig.Config(model=tconfig.ModelConfig(family="vovnet_pretrain"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.compute_loss(cfg, None, {})
 
