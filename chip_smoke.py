@@ -60,7 +60,23 @@ Phases (any failure exits non-zero):
      1e-4, wd 1e-8, clip 5.0, one group, no schedule): one lift-splat forward
      and backward launch a step, no host sync, 5 steps that move the loss,
      timed and split; one B=1 step on the card against the CPU beside the
-     card's own spread from weights moved by 1e-7.
+     card's own spread from weights moved by 1e-7;
+  9. Stack B's stage-1 -> stage-2 chain at the CLI's defaults, float32,
+     LSS v1, checkpoints in the original repo's `.pt` formats
+     (`train/checkpoint.py`): 9a. pretrain-v2 (VoVNetPreTrain, B=12, clip
+     5.0, one group, warmup-cosine) on labels with pixels at 255: launches
+     of kernels 1, 2, 3 and 3b, no host sync, 5 steps that move the loss,
+     timed, split and profiled (cuDNN's FFT kernels counted), what the
+     repair of ROADMAP fault 7 saves (stage 4 no longer computed at v1), one
+     B=12 eval step (kernels 1, 3, 4, 5), and at B=1 the card against the
+     CPU (forward, the pin bit for bit, a train step's gradients beside the
+     card's own spread); 9b. its components saved as `best_pretrained.pth`
+     and loaded into train-v2's flagship (B=8, clip 10, two groups) with
+     `restore_loose`, the four components bit for bit and the rest at init,
+     the flagship's float32 train step timed as in 9a, and a v2 pretrain's
+     file into the v1 flagship dropping `depth_net` whole; 9c.
+     `state_latest.pth` saved and restored into fresh objects, the state
+     bit for bit and the next step's loss bit for bit.
 
 Phases 2, 2b and 2c run kernels, plain versions and yardsticks in full
 float32 (`ops/_precision.py::full_float32`); phases 3 to 8 run under
@@ -131,6 +147,17 @@ STACK_A_LEAVES = ("camencode.depthnet.weight", "camencode.depthnet.bias",
 # batch norm on the 100x100 BEV maps flips ReLUs under round-off. 0.04 is
 # 2.8 times that spread, as phase 6's limits are to theirs.
 STACK_A_GRAD_TOL_LINEAR = 0.04
+# the stage-1 -> stage-2 chain (phase 9): pretrain-v2's batch (the JAX CLI's
+# default, `cli.py:724-727`); train-v2's is TRAIN_B
+PRETRAIN_B = 12
+# phase 9a's limits are phase 6's but for the linear paths' (cam_encode,
+# value_proj), which the pretrain's control (the card against itself from
+# weights moved by 1e-7, B=1, dropout off) moved by up to 5.2e-3 in max |diff|
+# over max |grad| (cam_encode; the card against the CPU 3.0e-3), half phase
+# 6's 1e-2 (NVIDIA H100 80GB HBM3, 700.00 W). 0.015 is 2.9 times that spread,
+# as phase 8's limit is to its own; the other leaves' control spread is at
+# most 3.6e-2 in max and 1.8e-2 in norm, under phase 6's 0.2 and 0.05.
+PRETRAIN_GRAD_TOL_LINEAR = 0.015
 
 
 def ptxas_lines():
@@ -254,6 +281,14 @@ PORT_KERNEL_NAMES = ("deform_sample", "lift_splat", "keys_kernel", "rowptr_kerne
                      "DeviceRadixSortOnesweep", "ffn_ln", "conv3x3", "split_tf32")
 # host-side CUDA calls that make the host wait for the device
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaMemcpy", "cudaDeviceSynchronize")
+# substrings of the kernels of cuDNN's FFT convolutions (for one float32
+# conv at 200x200 a complex float32 gemm, `sm80_xmma_gemm_cf32cf32_...`, ran
+# 33024 times on an H100)
+FFT_KERNEL_NAMES = ("fft", "complex", "_cf32")
+
+
+def is_fft_kernel(name):
+    return any(k in name.lower() for k in FFT_KERNEL_NAMES)
 
 
 def device_profile(fn, top=12):
@@ -261,7 +296,8 @@ def device_profile(fn, top=12):
     ms, the length of the union of the kernels' and copies' intervals (cuDNN
     may run kernels side by side, so their sum can exceed the call), and by
     kernel name the busiest ones and every kernel of the port's own, as
-    (name, summed ms, count); and the calls of `SYNC_CALLS` that `fn` made
+    (name, summed ms, count), cuDNN's FFT kernels among them; and the calls
+    of `SYNC_CALLS` that `fn` made
     (the profile's own closing `cudaDeviceSynchronize` not counted). Ranges
     that annotate the device timeline (`Optimizer.step#Adam.step`) are not
     work of their own and are left out."""
@@ -279,7 +315,8 @@ def device_profile(fn, top=12):
         end = max(end, t1)
     rows = sorted(((e.key[:90], e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages() if work(e)), key=lambda r: -r[1])
-    shown = [r for i, r in enumerate(rows) if i < top or any(k in r[0] for k in PORT_KERNEL_NAMES)]
+    shown = [r for i, r in enumerate(rows)
+             if i < top or any(k in r[0] for k in PORT_KERNEL_NAMES) or is_fft_kernel(r[0])]
     syncs = {k: sum(1 for e in prof.events() if e.name == k) for k in SYNC_CALLS}
     syncs["cudaDeviceSynchronize"] -= 1
     return busy / 1e3, sum(r[1] for r in rows), shown, syncs
@@ -1194,64 +1231,17 @@ def stack_a_train(dev, wrappers):
 
     train = dict(batch_size=STACK_A_B, lr=1e-4, weight_decay=1e-8, max_grad_norm=5.0)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     batch = train_batch(dev, STACK_A_B, seed=5)
     inputs = [batch[k] for k in ("imgs", "rots", "trans", "intrins", "post_rots", "post_trans")]
     model, _ = stack_a_models(dev, "bev_txt", inputs, **train)
     opt, sched = build_optimizer(model.cfg, model.train())
     if len(opt.param_groups) != 1 or sched.get_last_lr() != [1e-4]:
         return None, f"BevTxt trains in {len(opt.param_groups)} groups at {sched.get_last_lr()}"
-    for f in wrappers.values():
-        f.launches = 0
-    metrics = [train_step(model, opt, sched, batch, 0)]
-    torch.cuda.synchronize()
-    launches = {name: f.launches for name, f in wrappers.items()}
     expected = {name: int(name in ("lift_splat", "lift_splat_backward")) for name in wrappers}
-    print(f"Stack A BevTxt train step launches: {launches}")
-    if launches != expected:
-        return launches, f"BevTxt train launch counts {launches}, expected {expected}"
-    for step in range(1, 5):
-        metrics.append(train_step(model, opt, sched, batch, step))
-    losses = [float(m["loss"]) for m in metrics]
-    norms = [float(m["grad_norm"]) for m in metrics]
-    print(f"BevTxt train B={STACK_A_B} f32, 5 steps on one batch: loss {losses}, grad_norm {norms}")
-    if not all(math.isfinite(x) for x in losses + norms):
-        return launches, "non-finite loss or grad_norm in the BevTxt train step"
-    if not abs(losses[-1] - losses[0]) > 1e-3:
-        return launches, f"the BevTxt loss did not move in 5 steps: {losses}"
-    if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
-        return launches, "non-finite BevTxt weights after 5 steps"
-    step = 5
-    for _ in range(3):
-        train_step(model, opt, sched, batch, step)
-        step += 1
-    times = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        train_step(model, opt, sched, batch, step)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-        step += 1
-    times.sort()
-    step_ms = times[len(times) // 2]
-    split = split_step_ms(model, opt, sched, batch, step)
-    step += 5
-    busy_ms, summed_ms, top, syncs = device_profile(
-        lambda: train_step(model, opt, sched, batch, step), top=15)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"BevTxt train step B={STACK_A_B} f32: {step_ms:.3f} ms median of 10 "
-          f"({times[0]:.3f}-{times[-1]:.3f}), {STACK_A_B / step_ms * 1e3:.2f} samples/s")
-    print(f"BevTxt train step split (ms, CUDA events, median of 5): {json.dumps(split)}")
-    print(f"profiled BevTxt train step: device busy {busy_ms:.3f} ms (kernel times summed "
-          f"{summed_ms:.3f}), idle share of the timed step {1 - busy_ms / step_ms:.3f}")
-    for name, ms, count in top:
-        print(f"  {ms:9.3f} ms {count:4d}x {name}")
-    print(f"host syncs in one BevTxt train step (profiler): {json.dumps(syncs)}")
-    print(f"peak device memory in phase 8: {peak:.2f} GB")
-    if syncs["cudaStreamSynchronize"] or syncs["cudaMemcpy"]:
-        return launches, f"the BevTxt train step makes host syncs: {syncs}"
-    del model, opt, sched, batch, inputs, metrics
+    launches, _, err = drive_train("BevTxt f32", model, opt, sched, batch, wrappers, expected)
+    if err:
+        return launches, err
+    del model, opt, sched, batch, inputs
     torch.cuda.empty_cache()
 
     # one step at B=1, dropout and drop-connect off: the card against the CPU,
@@ -1293,6 +1283,411 @@ def stack_a_train(dev, wrappers):
     if bad:
         return launches, f"GPU and CPU BevTxt gradients disagree on {bad}"
     return launches, None
+
+
+def check_grads(label, got, want, leaves, linear_tol, control=None):
+    """Phase 6's per-leaf check of two models' gradients (with `control`,
+    the card's own spread from moved weights printed beside): a leaf whose
+    gradient is zero in exact arithmetic (at most 1e-4 of the largest) must
+    stay below 1e-3 of the largest; every other within GRAD_TOL in max
+    (`linear_tol` on the leaves that reach a kernel only through its linear
+    path: cam_encode, value_proj) and GRAD_NORM_TOL in norm. Returns the
+    leaves that fail."""
+    diffs = grad_diffs(got, want, leaves)
+    ctl = grad_diffs(control, got, leaves) if control is not None else {}
+    top = max(d[2] for d in diffs.values())
+    bad = []
+    for n in leaves:
+        rel, nrel, scale = diffs[n]
+        if scale <= 1e-4 * top:
+            gmax = float(dict(got.named_parameters())[n].grad.abs().max())
+            print(f"{label} grad {n}: zero up to round-off, max |want| {scale:.3e}, max |got| "
+                  f"{gmax:.3e}")
+            if not gmax <= 1e-3 * top:
+                bad.append(n)
+            continue
+        tol = linear_tol if n.startswith("cam_encode") or ".value_proj." in n else GRAD_TOL
+        moved = (f"; moved card vs card {ctl[n][0]:.3e}, {ctl[n][1]:.3e}" if n in ctl else "")
+        print(f"{label} grad {n}: max |want| {scale:.3e}, max diff / max {rel:.3e} (tol {tol}), "
+              f"norm of diff / norm {nrel:.3e} (tol {GRAD_NORM_TOL}){moved}")
+        if not (rel <= tol and nrel <= GRAD_NORM_TOL):
+            bad.append(n)
+    return bad
+
+
+def chain_config(family, lss_version="v1", **train):
+    """Stack B at the JAX CLI's defaults (`cli.py`): vovnet39, LSS v1 (both
+    stages' default), float32, 6 cameras at 128x352 into the 200x200 grid;
+    V3 for the flagship; `train` as the stage's defaults give it."""
+    from lss2_multimodal_nu_tpu_torch.config import Config, ModelConfig, TrainConfig
+
+    return Config(model=ModelConfig(family=family, vovnet_type="vovnet39", lss_version=lss_version,
+                                    compute_dtype="float32"),
+                  train=TrainConfig(**train))
+
+
+def pretrain_batch(dev, b, seed):
+    """fake_inputs plus BEV labels from a numpy seed, a fifth of the pixels
+    at the ignore index 255."""
+    import numpy as np
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.train.steps import MODEL_INPUTS
+
+    rng = np.random.default_rng(seed + 100)
+    batch = dict(zip(MODEL_INPUTS, (torch.from_numpy(a).to(dev) for a in fake_inputs(b, seed=seed))))
+    labels = rng.integers(0, 4, size=(b, GRID, GRID))
+    labels[rng.random((b, GRID, GRID)) < 0.2] = 255
+    batch["binimg"] = torch.from_numpy(labels).to(dev)
+    return batch
+
+
+def drive_train(label, model, opt, sched, batch, wrappers, expected):
+    """A main path's train step through `train_step`: every count set to 0
+    just before the first step and read just after, against `expected`; 5
+    steps on one batch that must move the loss by more than 1e-3, everything
+    finite; the median of 10 steps after 3 more on the host clock, the
+    forward / backward / optimizer split (CUDA events), device busy, idle
+    share, the busiest kernels (cuDNN's FFT kernels among them), host syncs
+    (none allowed) and peak memory. Returns (launches, the next step's
+    index, failure message or None)."""
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_step
+
+    b = batch["imgs"].shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    for f in wrappers.values():
+        f.launches = 0
+    metrics = [train_step(model, opt, sched, batch, 0)]
+    torch.cuda.synchronize()
+    launches = {name: f.launches for name, f in wrappers.items()}
+    print(f"{label} train step launches: {launches}")
+    if launches != expected:
+        return launches, 1, f"{label} train launch counts {launches}, expected {expected}"
+    for step in range(1, 5):
+        metrics.append(train_step(model, opt, sched, batch, step))
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    print(f"{label} train B={b}, 5 steps on one batch: loss {losses}, grad_norm {norms}, lr now "
+          f"{[g['lr'] for g in opt.param_groups]}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        return launches, 5, f"non-finite loss or grad_norm in the {label} train step"
+    if not abs(losses[-1] - losses[0]) > 1e-3:
+        return launches, 5, f"the {label} loss did not move in 5 steps: {losses}"
+    if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
+        return launches, 5, f"non-finite {label} weights after 5 steps"
+    step = 5
+    for _ in range(3):
+        train_step(model, opt, sched, batch, step)
+        step += 1
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        train_step(model, opt, sched, batch, step)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        step += 1
+    times.sort()
+    step_ms = times[len(times) // 2]
+    split = split_step_ms(model, opt, sched, batch, step)
+    step += 5
+    busy_ms, summed_ms, top, syncs = device_profile(
+        lambda: train_step(model, opt, sched, batch, step), top=15)
+    step += 1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fft = [r for r in top if is_fft_kernel(r[0])]
+    print(f"{label} train step B={b}: {step_ms:.3f} ms median of 10 "
+          f"({times[0]:.3f}-{times[-1]:.3f}), {b / step_ms * 1e3:.2f} samples/s")
+    print(f"{label} train step split (ms, CUDA events, median of 5): {json.dumps(split)}")
+    print(f"profiled {label} train step: device busy {busy_ms:.3f} ms (kernel times summed "
+          f"{summed_ms:.3f}), idle share of the timed step {1 - busy_ms / step_ms:.3f}")
+    for name, ms, count in top:
+        print(f"  {ms:9.3f} ms {count:5d}x {name}")
+    print(f"cuDNN FFT kernels in the {label} train step: {sum(r[2] for r in fft)} launches, "
+          f"{sum(r[1] for r in fft):.3f} ms")
+    print(f"host syncs in one {label} train step (profiler): {json.dumps(syncs)}")
+    print(f"peak device memory, {label} train: {peak:.2f} GB")
+    if syncs["cudaStreamSynchronize"] or syncs["cudaMemcpy"]:
+        return launches, step, f"the {label} train step makes host syncs: {syncs}"
+    return launches, step, None
+
+
+def stage4_saving(label, model, opt, sched, batch, step):
+    """What fault 7's repair saves in a train step at LSS v1: the step as it
+    runs (the trunk stops after stage 3) against the step with stage 4
+    computed and thrown away, as before the repair, 5 steps each in turns
+    (repaired, unrepaired, unrepaired, repaired), host-clock medians; and
+    stage 4's forward alone on c3 (CUDA events). Returns the next step's
+    index."""
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.ops._precision import full_float32
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_step
+
+    def unrepaired(imgs):
+        b, n = imgs.shape[:2]
+        feats = model.backbone(imgs.reshape(b * n, *imgs.shape[2:]).to(model.dtype), True)
+        return feats["c3"], feats["c4"]
+
+    times = {"repaired": [], "unrepaired": []}
+    for kind in ("repaired", "unrepaired", "unrepaired", "repaired"):
+        if kind == "unrepaired":
+            model.encode_cameras = unrepaired
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            train_step(model, opt, sched, batch, step)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t1) * 1e3)
+            step += 1
+        model.__dict__.pop("encode_cameras", None)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    imgs = batch["imgs"]
+    with torch.no_grad(), full_float32():
+        c3 = model.backbone(imgs.reshape(-1, *imgs.shape[2:]), False)["c3"]
+        stage4 = time_ms(lambda: model.backbone.backbone.stages[3](c3), reps=10)
+    print(f"fault 7, {label} train step B={imgs.shape[0]}: repaired {med['repaired']:.3f} ms, with "
+          f"stage 4 computed {med['unrepaired']:.3f} ms (host-clock medians of 10 in turns), "
+          f"saved {med['unrepaired'] - med['repaired']:.3f} ms; stage 4's train forward alone "
+          f"{stage4:.3f} ms (CUDA events)")
+    return step
+
+
+def pretrain_phase(dev, wrappers):
+    """Phase 9a: pretrain-v2 at its CLI defaults (VoVNetPreTrain, vovnet39,
+    LSS v1, float32, B=12, lr 1e-4, wd 1e-8, clip 5.0, one group,
+    warmup-cosine, 5 of 60 epochs of warmup, one step counting as one
+    epoch) on labels with pixels at 255, through `drive_train`; what fault
+    7's repair saves; one eval step at B=12 (kernels 1, 3, 4 and 5, one call
+    each) whose confusion matrix counts every pixel not at 255. Then at B=1,
+    seeded and `perturb`ed weights, the card against the CPU: the float32
+    eval forward (2e-3 on the BEV), bit for bit against the forward with
+    TF32 turned off by the caller under torch's defaults and under matmul
+    "high", and one train step (dropout off): loss, grad_norm and the
+    gradients upstream of the kernels, beside the card's own spread from
+    weights moved by 1e-7. Returns (the trained model, launches of the train
+    step, of the eval step, failure message or None)."""
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+    from lss2_multimodal_nu_tpu_torch.train.state import build_optimizer
+    from lss2_multimodal_nu_tpu_torch.train.steps import eval_step, train_step, train_without_dropout
+
+    cfg = chain_config("vovnet_pretrain", batch_size=PRETRAIN_B, lr=1e-4, weight_decay=1e-8,
+                       max_grad_norm=5.0, num_epochs=60, warmup_epochs=5, use_schedule=True)
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device=dev, seed=0)
+    perturb(model, seed=1)
+    opt, sched = build_optimizer(cfg, model.train(), steps_per_epoch=STEPS_PER_EPOCH)
+    if len(opt.param_groups) != 1 or sched.get_last_lr() != [0.0]:
+        return model, None, None, (f"the pretrain trains in {len(opt.param_groups)} groups from "
+                                   f"{sched.get_last_lr()}")
+    batch = pretrain_batch(dev, PRETRAIN_B, seed=11)
+    expected = {name: k[3] for name, k in KERNELS.items()}
+    launches, step, err = drive_train("pretrain-v2 f32", model, opt, sched, batch,
+                                               wrappers, expected)
+    if err:
+        return model, launches, None, err
+    step = stage4_saving("pretrain-v2", model, opt, sched, batch, step)
+
+    model.eval()
+    confmat = torch.zeros(4, 4, dtype=torch.int64, device=dev)
+    for f in wrappers.values():
+        f.launches = 0
+    res = eval_step(model, batch, confmat)
+    torch.cuda.synchronize()
+    eval_launches = {name: f.launches for name, f in wrappers.items()}
+    expected = {name: k[2] for name, k in KERNELS.items()}
+    counted, labelled = int(res["confmat"].sum()), int((batch["binimg"] != 255).sum())
+    print(f"pretrain-v2 eval step B={PRETRAIN_B} launches: {eval_launches}; loss "
+          f"{float(res['loss']):.6f}; confusion matrix counts {counted} of {labelled} labelled "
+          "pixels")
+    if eval_launches != expected:
+        return model, launches, eval_launches, (f"pretrain eval launch counts {eval_launches}, "
+                                                f"expected {expected}")
+    if counted != labelled or not math.isfinite(float(res["loss"])) or set(res) != {
+            "confmat", "loss", "bsize"}:
+        return model, launches, eval_launches, f"the pretrain eval step is wrong: {res}"
+    del batch, res
+
+    # B=1: the card against the CPU
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    perturb(cpu_model, seed=1)
+    gpu_model = build_model(cfg, device=dev, seed=0)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    one = fake_inputs(1, seed=3)
+    with torch.inference_mode():
+        want = cpu_model(*[torch.from_numpy(a) for a in one])
+
+    def card_forward():
+        with torch.inference_mode():
+            return gpu_model(*[torch.from_numpy(a).to(dev) for a in one]).cpu()
+
+    matmul, cudnn_tf32 = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    off = card_forward()
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.set_float32_matmul_precision(matmul)
+    for precision in (matmul, "high"):
+        torch.set_float32_matmul_precision(precision)
+        before = precision_flags()
+        got = card_forward()
+        torch.set_float32_matmul_precision(matmul)
+        diff = float((got - want).abs().max())
+        same = torch.equal(got, off)
+        print(f"gpu vs cpu f32 pretrain bev B=1 under {before}: max abs diff {diff:.3e} (atol "
+              f"2e-3), max |cpu| {float(want.abs().max()):.3e}; bit for bit equal to the "
+              f"forward with TF32 turned off by the caller: {same}")
+        if not diff <= 2e-3:
+            return model, launches, eval_launches, "GPU and CPU pretrain forwards disagree"
+        if not same:
+            return model, launches, eval_launches, (f"the pretrain forward under {before} does "
+                                                    "not pin full float32")
+
+    ctl_model = build_model(cfg, device=dev, seed=0)
+    ctl_model.load_state_dict(cpu_model.state_dict())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in ctl_model.parameters():
+            p.add_(1e-7 * p.abs().mean() * torch.randn(p.shape, generator=gen).to(dev))
+    cpu_batch = pretrain_batch("cpu", 1, seed=3)
+    gpu_batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    out = {}
+    for name, m, b_ in (("cpu", cpu_model, cpu_batch), ("gpu", gpu_model, gpu_batch),
+                        ("ctl", ctl_model, gpu_batch)):
+        o, s = build_optimizer(cfg, train_without_dropout(m), steps_per_epoch=STEPS_PER_EPOCH)
+        out[name] = train_step(m, o, s, b_, 0)
+    for k, rtol in (("loss", 1e-5), ("grad_norm", 2e-3)):
+        a, b_, c_ = (float(out[n][k]) for n in ("gpu", "cpu", "ctl"))
+        print(f"gpu vs cpu f32 pretrain train {k}: {a:.6f} vs {b_:.6f}, rel diff "
+              f"{abs(a - b_) / abs(b_):.3e} (rtol {rtol}); moved card {abs(c_ - a) / abs(a):.3e}")
+        if not abs(a - b_) <= rtol * abs(b_):
+            return model, launches, eval_launches, f"GPU and CPU pretrain train steps disagree on {k}"
+    bad = check_grads("gpu vs cpu f32 pretrain", gpu_model, cpu_model,
+                      upstream_leaves(cpu_model), PRETRAIN_GRAD_TOL_LINEAR, control=ctl_model)
+    if bad:
+        return model, launches, eval_launches, f"GPU and CPU pretrain gradients disagree on {bad}"
+    return model, launches, eval_launches, None
+
+
+def flagship_chain_phase(dev, wrappers, pretrain):
+    """Phases 9b and 9c: stage 2 of the chain. The trained pretrain's
+    components saved as `best_pretrained.pth` on the card; the flagship at
+    train-v2's defaults (vovnet39, LSS v1, V3, float32, B=8, lr 1e-4, wd
+    1e-8, clip 10, two groups, warmup-cosine) warm-started from it with
+    `restore_loose`: the four components equal the pretrain's bit for bit,
+    every other tensor its init. Its float32 train step through
+    `drive_train`, and what fault 7's repair saves. A v2 pretrain's file into
+    a v1 flagship drops `depth_net` whole and loads the other three. Then
+    resume: `state_latest` saved, restored into a model, optimizer and
+    scheduler made afresh; parameters, buffers, Adam's moments and the
+    scheduler equal the saved ones bit for bit, and the next step's loss
+    equals the uninterrupted run's bit for bit, its gradients upstream of
+    the kernels within phase 6's limits (the deformable backward's dv
+    atomics add in varying order, ROADMAP fault 2). Returns (launches of the
+    train step, failure message or None)."""
+    import shutil
+
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+    from lss2_multimodal_nu_tpu_torch.models.vovnet_pretrain import PRETRAIN_COMPONENTS
+    from lss2_multimodal_nu_tpu_torch.train import checkpoint as ck
+    from lss2_multimodal_nu_tpu_torch.train.state import build_optimizer
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_step
+
+    tmp = ROOT / "build" / "chain"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    try:
+        # 9b. the warm start from stage 1
+        path = str(tmp / ck.BEST_PRETRAINED)
+        ck.save_components(path, pretrain, epoch=1, lss_version="v1")
+        cfg = chain_config("vovnet_transformer", batch_size=TRAIN_B, lr=1e-4, weight_decay=1e-8,
+                           max_grad_norm=10.0, num_epochs=60, warmup_epochs=5, use_schedule=True)
+        torch.cuda.empty_cache()
+        model = build_model(cfg, device=dev, seed=2)
+        perturb(model, seed=3)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        report = ck.restore_loose(path, model, map_location=dev)
+        want = pretrain.state_dict()
+        moved = [k for k, v in model.state_dict().items() if not torch.equal(
+            v, want[k] if k.split(".")[0] in PRETRAIN_COMPONENTS else init[k])]
+        print(f"9b warm start from {ck.BEST_PRETRAINED}: loaded {report['loaded']}, dropped "
+              f"{report['dropped']}, left at init {report['absent']}; tensors off their source: "
+              f"{len(moved)}")
+        if report["loaded"] != list(PRETRAIN_COMPONENTS) or report["dropped"] or moved:
+            return None, f"the stage-1 warm start is wrong: {report}, {moved[:5]}"
+        del init, want
+
+        opt, sched = build_optimizer(cfg, model.train(), steps_per_epoch=STEPS_PER_EPOCH)
+        if len(opt.param_groups) != 2:
+            return None, f"the flagship trains in {len(opt.param_groups)} groups"
+        batch = train_batch(dev, TRAIN_B, seed=13)
+        expected = {name: k[3] for name, k in KERNELS.items()}
+        launches, step, err = drive_train("train-v2 flagship f32", model, opt, sched,
+                                                   batch, wrappers, expected)
+        if err:
+            return launches, err
+        step = stage4_saving("train-v2 flagship", model, opt, sched, batch, step)
+
+        # a v2 pretrain's components into a v1 flagship: depth_net differs
+        path2 = str(tmp / ck.PRETRAINED_EPOCH.format(epoch=10))
+        v2 = build_model(chain_config("vovnet_pretrain", lss_version="v2"), device=dev, seed=4)
+        ck.save_components(path2, v2, epoch=10, lss_version="v2")
+        other = build_model(cfg, device=dev, seed=5)
+        init = {k: v.clone() for k, v in other.state_dict().items()}
+        report = ck.restore_loose(path2, other, map_location=dev)
+        want = v2.state_dict()
+        kept = all(torch.equal(v, init[k]) for k, v in other.state_dict().items()
+                   if k.startswith("depth_net."))
+        print(f"9b warm start from a v2 pretrain into the v1 flagship: loaded {report['loaded']}, "
+              f"dropped {sorted(report['dropped'])}; depth_net at its init: {kept}")
+        if (list(report["dropped"]) != ["depth_net"] or not kept
+                or report["loaded"] != [c for c in PRETRAIN_COMPONENTS if c != "depth_net"]
+                or not all(torch.equal(v, want[k]) for k, v in other.state_dict().items()
+                           if k.split(".")[0] in report["loaded"])):
+            return launches, f"the v2 -> v1 warm start is wrong: {report}"
+        del v2, other, init, want
+
+        # 9c. resume from state_latest
+        path3 = str(tmp / ck.STATE_LATEST)
+        ck.save_train_state(path3, model, opt, sched, step=step, epoch=step)
+        fresh = build_model(cfg, device=dev, seed=6).train()
+        f_opt, f_sched = build_optimizer(cfg, fresh, steps_per_epoch=STEPS_PER_EPOCH)
+        meta = ck.restore_train_state(path3, fresh, f_opt, f_sched, map_location=dev)
+        sd, f_sd = model.state_dict(), fresh.state_dict()
+        o, f_o = opt.state_dict(), f_opt.state_dict()
+        same = {
+            "parameters and buffers": all(torch.equal(sd[k], f_sd[k]) for k in sd),
+            "Adam moments": o["param_groups"] == f_o["param_groups"] and all(
+                torch.equal(v, f_o["state"][i][k]) for i, st in o["state"].items()
+                for k, v in st.items()),
+            "scheduler": sched.state_dict() == f_sched.state_dict(),
+            "step": meta["step"] == step,
+        }
+        same["Adam step counters on the host"] = all(
+            st["step"].device.type == "cpu" for st in f_opt.state.values())
+        print(f"9c restored from {ck.STATE_LATEST} at step {step}, bit for bit: {same}")
+        if not all(same.values()):
+            return launches, f"the restored state differs: {same}"
+        m_a = train_step(model, opt, sched, batch, step)
+        m_b = train_step(fresh, f_opt, f_sched, batch, meta["step"])
+        same_loss = torch.equal(m_a["loss"], m_b["loss"])
+        print(f"9c next step's loss, uninterrupted {float(m_a['loss']):.9g}, resumed "
+              f"{float(m_b['loss']):.9g}: bit for bit {same_loss}")
+        if not same_loss:
+            return launches, "the resumed step's loss differs from the uninterrupted run's"
+        bad = check_grads("9c resumed vs uninterrupted", fresh, model, upstream_leaves(model),
+                          GRAD_TOL_LINEAR)
+        if bad:
+            return launches, f"the resumed step's gradients differ on {bad}"
+        return launches, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def precision_flags():
@@ -1425,63 +1820,17 @@ def main() -> int:
 
     # ---- 5. the flagship train step at full width, train-v2, B=8, bfloat16
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     try:
         model, opt, sched = train_setup(dev, "bfloat16")
         batch = train_batch(dev, TRAIN_B, seed=5)
-        for f in wrappers.values():
-            f.launches = 0
-        metrics = [train_step(model, opt, sched, batch, 0)]
-        torch.cuda.synchronize()
-        train_launches = {name: f.launches for name, f in wrappers.items()}
-        expected = {name: k[3] for name, k in KERNELS.items()}
-        print(f"train step launches: {train_launches}")
-        if train_launches != expected:
-            return _fail(f"train launch counts {train_launches}, expected {expected}")
-        for step in range(1, 5):
-            metrics.append(train_step(model, opt, sched, batch, step))
-        losses = [float(m["loss"]) for m in metrics]
-        norms = [float(m["grad_norm"]) for m in metrics]
-        print(f"train B={TRAIN_B} bf16, 5 steps on one batch: loss {losses}, grad_norm {norms}, "
-              f"lr now {[g['lr'] for g in opt.param_groups]}")
-        if not all(math.isfinite(x) for x in losses + norms):
-            return _fail("non-finite loss or grad_norm in the train step")
-        if not abs(losses[-1] - losses[0]) > 1e-3:
-            return _fail(f"the loss did not move in 5 steps: {losses}")
-        step = 5
-        for _ in range(3):
-            train_step(model, opt, sched, batch, step)
-            step += 1
-        times = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            train_step(model, opt, sched, batch, step)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t1) * 1e3)
-            step += 1
-        times.sort()
-        step_ms = times[len(times) // 2]
-        split = split_step_ms(model, opt, sched, batch, step)
-        step += 5
-        busy_ms, summed_ms, top, syncs = device_profile(
-            lambda: train_step(model, opt, sched, batch, step), top=15)
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        train_launches, _, err = drive_train("flagship bf16", model, opt, sched, batch,
+                                                wrappers, {n: k[3] for n, k in KERNELS.items()})
     except torch.cuda.OutOfMemoryError:
         return _fail(f"the B={TRAIN_B} train step does not fit on the card: peak "
                      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB before the failure")
-    print(f"train step B={TRAIN_B} bf16: {step_ms:.3f} ms median of 10 "
-          f"({times[0]:.3f}-{times[-1]:.3f}), {TRAIN_B / step_ms * 1e3:.2f} samples/s")
-    print(f"train step split (ms, CUDA events, median of 5): {json.dumps(split)}")
-    print(f"profiled train step: device busy {busy_ms:.3f} ms (kernel times summed "
-          f"{summed_ms:.3f}), idle share of the timed step {1 - busy_ms / step_ms:.3f}")
-    for name, ms, count in top:
-        print(f"  {ms:9.3f} ms {count:4d}x {name}")
-    print(f"host syncs in one train step (profiler): {json.dumps(syncs)}")
-    print(f"peak device memory in phase 5: {peak:.2f} GB")
-    if syncs["cudaStreamSynchronize"] or syncs["cudaMemcpy"]:
-        return _fail(f"the train step makes host syncs: {syncs}")
-    del model, opt, sched, batch, metrics
+    if err:
+        return _fail(err)
+    del model, opt, sched, batch
 
     # ---- 6. one float32 train step at B=1, dropout off: the card against the
     # CPU; and, as the yardstick of the gradient tolerances, the card against
@@ -1576,6 +1925,17 @@ def main() -> int:
     stack_a_train_launches, err = stack_a_train(dev, wrappers)
     if err:
         return _fail(err)
+    torch.cuda.empty_cache()
+
+    # ---- 9. the stage-1 -> stage-2 chain at the CLI's defaults, float32:
+    # 9a pretrain-v2; 9b the warm start and train-v2's flagship step; 9c resume
+    pretrain, chain_launches, pretrain_eval_launches, err = pretrain_phase(dev, wrappers)
+    if err:
+        return _fail(err)
+    flagship_f32_launches, err = flagship_chain_phase(dev, wrappers, pretrain)
+    if err:
+        return _fail(err)
+    del pretrain
 
     kernels = []
     backward_outputs = {"deformable_sample_backward": ("dv", "dlx", "dly", "dattn"),
@@ -1590,6 +1950,9 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name] if n_eval else train_launches[name],
             launches_eval_forward=launches[name], launches_train_step=train_launches[name],
+            launches_pretrain_train_step=chain_launches[name],
+            launches_pretrain_eval_step=pretrain_eval_launches[name],
+            launches_flagship_f32_train_step=flagship_f32_launches[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             composite_ms=row.get("composite_ms"),

@@ -10,7 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.seg_head import fold_conv_bn, fused_seg_head
-from .layers import ConvBNReLU, conv2d, conv_bn, layer_norm, linear
+from .layers import ConvBNReLU, conv2d, conv_bn, cudnn_off_for_float32, layer_norm, linear
 from .transformer import LightweightBEVTransformer
 
 
@@ -35,7 +35,17 @@ def multi_head_attention(q, k, v, m: nn.MultiheadAttention):
 class BEVEncoderTransformer(nn.Module):
     """Compress Z*C -> 256, transformer refine, 3-conv seg head (kernel 5 in
     eval; conv -> train BN -> ReLU twice, then the 1x1 conv, in training).
-    Returns (seg logits (B, out, X, Y), refined features (B, 256, X, Y))."""
+    Returns (seg logits (B, out, X, Y), refined features (B, 256, X, Y)).
+
+    In float32 training on the card the seg head's first conv (3x3 256 ->
+    128 at 200x200, on the tokens' permuted view) runs its forward without
+    cuDNN: with TF32 off, cuDNN's heuristic takes FFT tiling, 17.5-17.7 ms
+    at B=8 and 265-454 ms at B=12 over two runs, against 7.3 and 11.0 ms for
+    PyTorch's im2col and cuBLAS, 6e-7 from float64 alike; its backward,
+    which picks its backend when it runs, stays with cuDNN, faster there
+    (8.7 against 18.1 ms at B=8). The second conv is faster with cuDNN
+    (`scripts/port_seg_head_train_conv.py`, NVIDIA H100 80GB HBM3, 700.00
+    W)."""
 
     def __init__(self, cin: int = 128, out_features: int = 4, ln_eps: float = 1e-6):
         super().__init__()
@@ -65,7 +75,9 @@ class BEVEncoderTransformer(nn.Module):
         refined = tokens.view(b, h, w, -1).permute(0, 3, 1, 2)
         if self.training:
             s = self.seg_head
-            y = conv_bn(conv_bn(refined, s[0], s[1], relu=True), s[3], s[4], relu=True)
+            with cudnn_off_for_float32(refined):
+                y = conv_bn(refined, s[0], s[1], relu=True)
+            y = conv_bn(y, s[3], s[4], relu=True)
             return conv_bn(y, s[6]), refined
         seg = fused_seg_head(tokens, *self.folded_seg_head(), h, w).to(x.dtype)
         return seg, refined

@@ -10,6 +10,7 @@ fault e).
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 import torch
@@ -39,6 +40,26 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = Non
     y = F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
                  conv.stride, conv.padding, conv.dilation, conv.groups)
     return F.relu(y) if relu else y
+
+
+@contextmanager
+def cudnn_off_for_float32(x: torch.Tensor):
+    """cuDNN off for the block where x is a float32 CUDA tensor: PyTorch's
+    own conv (im2col and a cuBLAS product, full float32 under the pin) runs
+    instead, and the flag is restored after. A conv's backward picks its
+    backend when it runs, after the block: cuDNN's again. For the float32
+    convs at 200x200 where cuDNN's heuristic, with TF32 off, takes FFT
+    tiling that is many times slower (`nn/lss_modules.py::BevEncode`,
+    `nn/fusion.py::BEVEncoderTransformer`)."""
+    if x.dtype != torch.float32 or x.device.type != "cuda":
+        yield
+        return
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
 
 
 def linear(x: torch.Tensor, m: nn.Linear) -> torch.Tensor:

@@ -7,7 +7,6 @@ Sequential indices) and torchvision's DeepLab ASPP (`convs.{0..4}`,
 `project`)."""
 from __future__ import annotations
 
-from contextlib import contextmanager
 from typing import Sequence, Tuple
 
 import torch
@@ -16,7 +15,8 @@ from torch import nn
 
 from ..ops.sampling import resize_bilinear
 from .efficientnet import EfficientNetTrunk, encoder_channels
-from .layers import ConvBNReLU, Up, conv_bn, conv2d, global_avg_pool, linear, max_pool
+from .layers import (ConvBNReLU, Up, conv_bn, conv2d, cudnn_off_for_float32, global_avg_pool,
+                     linear, max_pool)
 
 
 class Encoder(nn.Module):
@@ -70,22 +70,6 @@ class BasicBlock(nn.Module):
         return F.relu(y + identity)
 
 
-@contextmanager
-def _cudnn_off_for_float32(x: torch.Tensor):
-    """cuDNN off for the block where x is a float32 CUDA tensor: PyTorch's
-    own conv (im2col and a cuBLAS product, full float32 under the pin) runs
-    instead, and the flag is restored after."""
-    if x.dtype != torch.float32 or x.device.type != "cuda":
-        yield
-        return
-    enabled = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.enabled = enabled
-
-
 class BevEncode(nn.Module):
     """BEV decoder: resnet18's conv1 (7x7 / 2) and layers 1-3, Up(x4)
     against layer 1, a x2 bilinear resize (align_corners=True), conv-BN-ReLU
@@ -117,7 +101,7 @@ class BevEncode(nn.Module):
         x1 = self.layer1(x)
         x = self.up1(self.layer3(self.layer2(x1)), x1)
         x = resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3]), align_corners=True)
-        with _cudnn_off_for_float32(x):
+        with cudnn_off_for_float32(x):
             x = conv_bn(x, self.up2[1], self.up2[2], relu=True)
         return conv_bn(x, self.up2[4])
 

@@ -7,8 +7,10 @@ depthwise (k, k, 1, C) kernel becomes (C, 1, k, k) by the same transpose),
 dense kernels (in, out) -> (out, in), separate q/k/v projections re-packed
 into `in_proj_weight` / `in_proj_bias`, batch-norm scale/bias/mean/var ->
 weight/bias/running_mean/running_var. It inverts the JAX package's torch
-porter for the `vovnet_transformer`, `lss`, `bev_txt` and `bev_txt_onlybev`
-families and carries its own mapping.
+porter for the five model families and for `VoVNetSimple` (family
+"vovnet_simple", the backbone alone) and carries its own mapping. The
+porter has no rule for `vovnet_pretrain`; its four components take the
+flagship's.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from .nn.efficientnet import trunk_blocks
-from .nn.vovnet import TIMM_CONFIGS
+from .nn.vovnet import TIMM_CONFIGS, VoVNetSimple
 
 Tree = Dict[str, Any]
 
@@ -128,9 +130,15 @@ def _stack_a_rules(family: str, variant: str) -> _Rules:
     return r
 
 
-def _flagship_rules(model_name="vovnet39", lss_version="v2", use_camera_attn=True,
-                    use_cross_attn=True) -> _Rules:
-    r = _Rules()
+def _seq(r: _Rules, jax: str, torch_key: str):
+    """ConvBN with a biased conv <- Sequential(conv, bn, ReLU)."""
+    r.conv(f"{jax}/conv", f"{torch_key}.0", bias=True)
+    r.bn(f"{jax}/bn", f"{torch_key}.1")
+
+
+def _bev_branch_rules(r: _Rules, model_name: str = "vovnet39", lss_version: str = "v2"):
+    """The flagship's BEV branch, the pretrain model's whole: `backbone`,
+    `depth_net`, `cam_encode`, `bev_encoder`."""
     stem_chs, _, _, layers, blocks = TIMM_CONFIGS[model_name]
     for i in range(len(stem_chs)):
         r.conv_bn(f"backbone/stem{i}", f"backbone.backbone.stem.{i}.conv",
@@ -148,18 +156,14 @@ def _flagship_rules(model_name="vovnet39", lss_version="v2", use_camera_attn=Tru
         r.bn(f"{jax}/conv/bn", f"{torch_key}.1")
         r.conv(f"{jax}/out", f"{torch_key}.3", bias=True)
 
-    def seq(jax, torch_key, bias=True):
-        r.conv(f"{jax}/conv", f"{torch_key}.0", bias=bias)
-        r.bn(f"{jax}/bn", f"{torch_key}.1")
-
     if lss_version == "v2":
         depth_head("depth_net/depth_c3", "depth_net.depth_c3")
         depth_head("depth_net/depth_c4", "depth_net.depth_c4")
-        seq("depth_net/fusion", "depth_net.fusion")
+        _seq(r, "depth_net/fusion", "depth_net.fusion")
     else:
         depth_head("depth_net/depth_head", "depth_net.depth_head")
     r.conv("cam_encode/feat_proj", "cam_encode.feat_proj", bias=True)
-    seq("bev_encoder/compress", "bev_encoder.compress")
+    _seq(r, "bev_encoder/compress", "bev_encoder.compress")
     enc_j, enc_t = "bev_encoder/transformer/encoder", "bev_encoder.transformer.encoder"
     for lin in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
         r.linear(f"{enc_j}/self_attn/{lin}", f"{enc_t}.self_attn.{lin}")
@@ -172,8 +176,30 @@ def _flagship_rules(model_name="vovnet39", lss_version="v2", use_camera_attn=Tru
     r.conv("bev_encoder/seg1/conv", "bev_encoder.seg_head.3", bias=True)
     r.bn("bev_encoder/seg1/bn", "bev_encoder.seg_head.4")
     r.conv("bev_encoder/seg_out", "bev_encoder.seg_head.6", bias=True)
+
+
+def _vovnet_simple_rules(model_name: str = "vovnet57") -> _Rules:
+    """VoVNetSimple at the root, as the JAX package's
+    `port/torch_port.py::add_vovnet_scratch` maps it."""
+    r = _Rules()
+    for i, t in enumerate((0, 3, 6)):
+        r.conv_bn(f"stem{i}", f"stem.{t}", f"stem.{t + 1}")
+    for s, (blocks, _) in enumerate(VoVNetSimple.STAGE_CONFIGS[model_name]):
+        for b in range(blocks):
+            jb, tb = f"stage{s + 1}_block{b}", f"stage{s + 1}.{b}"
+            for i in range(5):
+                r.conv_bn(f"{jb}/conv{i}", f"{tb}.layers.{i}.0", f"{tb}.layers.{i}.1")
+            r.conv_bn(f"{jb}/concat_conv", f"{tb}.concat_conv.0", f"{tb}.concat_conv.1")
+            r.conv(f"{jb}/ese/fc", f"{tb}.ese.fc", bias=True)
+    return r
+
+
+def _flagship_rules(model_name="vovnet39", lss_version="v2", use_camera_attn=True,
+                    use_cross_attn=True) -> _Rules:
+    r = _Rules()
+    _bev_branch_rules(r, model_name, lss_version)
     for name in ("scale1", "scale2", "fusion"):
-        seq(f"feature_pyramid/{name}", f"feature_pyramid.{name}")
+        _seq(r, f"feature_pyramid/{name}", f"feature_pyramid.{name}")
     _aspp(r, "sceneunder/aspp", "sceneunder.0")
     if use_camera_attn:
         r.copy("camera_transformer/cam_embed/embedding", "camera_transformer.cam_embed.weight")
@@ -208,15 +234,22 @@ STACK_A = ("lss", "bev_txt", "bev_txt_onlybev")
 def state_dict_from_jax(params: Tree, batch_stats: Tree, family: str = "vovnet_transformer",
                         effnet_variant: str = "b4", **flagship_flags) -> Dict[str, torch.Tensor]:
     """The port's state_dict (float32 CPU tensors) from the JAX model's
-    variables. `family` is `ModelConfig.family`; Stack A's take
-    `effnet_variant`, the flagship its flags `model_name` (`vovnet_type`),
-    `lss_version`, `use_camera_attn` and `use_cross_attn`."""
+    variables. `family` is `ModelConfig.family`, or "vovnet_simple" for
+    `nn/vovnet.py::VoVNetSimple` alone; Stack A's take `effnet_variant`, the
+    flagship its flags `model_name` (`vovnet_type`), `lss_version`,
+    `use_camera_attn` and `use_cross_attn`, the pretrain model
+    `model_name` and `lss_version`, VoVNetSimple `model_name`."""
     if family in STACK_A:
         if flagship_flags:
             raise TypeError(f"family {family!r} takes no flags {sorted(flagship_flags)}")
         rules = _stack_a_rules(family, effnet_variant)
     elif family == "vovnet_transformer":
         rules = _flagship_rules(**flagship_flags)
+    elif family == "vovnet_pretrain":
+        rules = _Rules()
+        _bev_branch_rules(rules, **flagship_flags)
+    elif family == "vovnet_simple":
+        rules = _vovnet_simple_rules(**flagship_flags)
     else:
         raise ValueError(f"no weight mapping for family {family!r}")
     sd: Dict[str, torch.Tensor] = {}

@@ -4,8 +4,15 @@ normalisation (counterpart of the JAX package's `train/losses.py`).
 The port's BEV logits are NCHW (B, C, X, Y), so the class axis is 1; labels
 are (B, X, Y) integers. Action and description logits are (B, 4) and (B, 8)
 with float 0/1 targets. Every loss runs in float32 whatever the logits'
-dtype. The flagship trains on `multi_task_loss`, Stack A's LSS on
-`simple_loss` and BevTxt and BevTxtOnlyBev on `multi_loss`.
+dtype. The flagship trains on `multi_task_loss`, the pretrain model on
+`cross_entropy_ignore`, Stack A's LSS on `simple_loss` and BevTxt and
+BevTxtOnlyBev on `multi_loss`.
+
+The cross entropies sum their per-pixel terms with a reduction of their
+own: `F.cross_entropy`'s own mean or sum over a (B, X, Y) map adds with
+float atomics on the card, in an order that varies, so the same step on
+the same weights gave losses a few ulps apart; the per-pixel terms and
+their sum repeat bit for bit.
 """
 from __future__ import annotations
 
@@ -42,7 +49,9 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            class_weights: Sequence[float]) -> torch.Tensor:
     """`nn.CrossEntropyLoss(weight=w)`: the weighted mean, normalised by the
     sum of the samples' weights (not their count)."""
-    return F.cross_entropy(logits.float(), labels.long(), weight=_const(class_weights, logits))
+    labels = labels.long()
+    w = _const(class_weights, logits)[labels]
+    return (w * F.cross_entropy(logits.float(), labels, reduction="none")).sum() / w.sum()
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, weight=None,
@@ -96,5 +105,6 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     pixels not ignored; 0 (not NaN) when every pixel is ignored, as in the
     JAX package."""
     labels = labels.long()
-    total = F.cross_entropy(logits.float(), labels, ignore_index=ignore_index, reduction="sum")
-    return total / (labels != ignore_index).sum().clamp(min=1)
+    per_pixel = F.cross_entropy(logits.float(), labels, ignore_index=ignore_index,
+                                reduction="none")  # 0 where ignored
+    return per_pixel.sum() / (labels != ignore_index).sum().clamp(min=1)

@@ -25,12 +25,14 @@ import torch
 from ..config import Config
 from ..ops._precision import full_float32
 from ..nn.layers import DropConnect
-from .losses import multi_loss, multi_task_loss, simple_loss
+from .losses import cross_entropy_ignore, multi_loss, multi_task_loss, simple_loss
 from .metrics import confusion_matrix_update
 
 Batch = Dict[str, torch.Tensor]
 
 MODEL_INPUTS = ("imgs", "rots", "trans", "intrins", "post_rots", "post_trans")
+# the families whose model returns the BEV logits alone
+BEV_ONLY = ("lss", "vovnet_pretrain")
 
 
 def compute_loss(cfg: Config, out, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -38,6 +40,9 @@ def compute_loss(cfg: Config, out, batch: Batch) -> Tuple[torch.Tensor, Dict[str
     family = cfg.model.family
     if family == "lss":
         loss = simple_loss(out, batch["binimg"])
+        return loss, {"loss": loss}
+    if family == "vovnet_pretrain":
+        loss = cross_entropy_ignore(out, batch["binimg"])
         return loss, {"loss": loss}
     if family in ("bev_txt", "bev_txt_onlybev"):
         bev, act, desc = out
@@ -48,8 +53,7 @@ def compute_loss(cfg: Config, out, batch: Batch) -> Tuple[torch.Tensor, Dict[str
         loss, comps = multi_task_loss(bev, act, desc, batch["binimg"], batch["act"],
                                       batch["desc"])
         return loss, {"loss": loss, **comps}
-    raise NotImplementedError(f"the loss of family {family!r} is not ported yet: ROADMAP.md "
-                              "queue 1 item 13 (pretrain family)")
+    raise ValueError(f"unknown model family {family!r}")
 
 
 def _step_seed(seed: int, step: int) -> int:
@@ -104,17 +108,19 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 def eval_step(model: torch.nn.Module, batch: Batch, confmat: torch.Tensor) -> Dict:
     """Eval forward of a model in eval mode; returns {confmat (updated),
     loss, bsize}, and for the multitask families act_pred and desc_pred, the
-    predictions as sigmoid > 0.5 (LSS predicts the BEV alone)."""
+    predictions as sigmoid > 0.5 (LSS and the pretrain model predict the BEV
+    alone)."""
     if model.training:
         raise ValueError("eval_step needs the model in eval mode (model.eval())")
     cfg = model.cfg
     out = model(*(batch[k] for k in MODEL_INPUTS))
     loss, _ = compute_loss(cfg, out, batch)
-    bev = out if cfg.model.family == "lss" else out[0]
+    multitask = cfg.model.family not in BEV_ONLY
+    bev = out[0] if multitask else out
     confmat = confusion_matrix_update(confmat, batch["binimg"], bev.argmax(dim=1),
                                       cfg.model.seg_classes)
     res = {"confmat": confmat, "loss": loss, "bsize": bev.shape[0]}
-    if cfg.model.family != "lss":
+    if multitask:
         res["act_pred"] = torch.sigmoid(out[1].float()) > 0.5
         res["desc_pred"] = torch.sigmoid(out[2].float()) > 0.5
     return res

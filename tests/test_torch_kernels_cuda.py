@@ -833,3 +833,70 @@ def test_bev_txt_card_matches_cpu(request, flags):
     assert got[0].shape == (1, 4, 200, 200) and float(want[0].abs().max()) > 0.1
     for g_, w_, atol in zip(got, want, (2e-3, 1e-3, 1e-3)):
         torch.testing.assert_close(g_, w_, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("family", ["vovnet_transformer", "vovnet_pretrain"])
+def test_train_seg_head_first_conv_runs_off_cudnn(dev, family):
+    """In a float32 train step on the card the BEV encoder's seg head runs
+    its first conv (3x3 256 -> 128) with cuDNN off (`nn/fusion.py`: cuDNN's
+    FFT tiling there took 265-454 ms at B=12), every other conv of the forward
+    with cuDNN, and cuDNN is on again after the step, its backward
+    included; in eval the seg head is kernel 5 and no conv runs off
+    cuDNN."""
+    import torch.nn.functional as F
+
+    xb = (-7.5, 7.5, 0.5)
+    cfg = Config(grid=GridConfig(xbound=xb, ybound=xb), aug=AugConfig(final_dim=(32, 96)),
+                 model=ModelConfig(family=family, lss_version="v1"))
+    model = build_model(cfg, device=dev, seed=3)
+    args = [a.to(dev) for a in _camera_args()]
+    rng = np.random.default_rng(9)
+    batch = dict(zip(tsteps.MODEL_INPUTS, args),
+                 binimg=torch.from_numpy(rng.integers(0, 4, size=(2, 30, 30))).to(dev),
+                 act=torch.from_numpy((rng.random((2, 4)) < 0.4).astype(np.float32)).to(dev),
+                 desc=torch.from_numpy((rng.random((2, 8)) < 0.4).astype(np.float32)).to(dev))
+    calls, orig = {"train": [], "eval": []}, F.conv2d
+    where = ["train"]
+
+    def recording(x, w, *a, **k):
+        calls[where[0]].append((tuple(w.shape), torch.backends.cudnn.enabled))
+        return orig(x, w, *a, **k)
+
+    opt, sched = ts.build_optimizer(cfg, model.train())
+    F.conv2d = recording
+    try:
+        metrics = tsteps.train_step(model, opt, sched, batch, 0)
+        where[0] = "eval"
+        with torch.inference_mode():
+            model.eval()(*args)
+    finally:
+        F.conv2d = orig
+    assert torch.backends.cudnn.enabled and torch.isfinite(metrics["loss"])
+    assert [s for s, on in calls["train"] if not on] == [(128, 256, 3, 3)], calls["train"]
+    assert all(on for _, on in calls["eval"]) and calls["eval"]
+    assert (128, 256, 3, 3) not in [s for s, _ in calls["eval"]]
+
+
+def test_bev_losses_repeat_bit_for_bit(dev):
+    """The BEV cross entropies at a train step's size (B=12, 4 classes,
+    200x200, a fifth of the labels at 255 for the pretrain's) give the same
+    bits on every call, their gradients too, where `F.cross_entropy`'s own
+    reduction adds with float atomics in a varying order; and they agree
+    with it to 1e-6 relative."""
+    from lss2_multimodal_nu_tpu_torch.train import losses
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    logits = (3 * torch.randn(12, 4, 200, 200, device=dev, generator=gen)).requires_grad_()
+    labels = torch.randint(0, 4, (12, 200, 200), device=dev, generator=gen)
+    ignored = torch.where(torch.rand(labels.shape, device=dev, generator=gen) < 0.2, 255, labels)
+    weight = torch.tensor(losses.BEV_CLASS_WEIGHTS, device=dev)
+    for fn, lab, want in (
+            (lambda x, y: losses.weighted_cross_entropy(x, y, losses.BEV_CLASS_WEIGHTS), labels,
+             torch.nn.functional.cross_entropy(logits, labels, weight=weight)),
+            (losses.cross_entropy_ignore, ignored,
+             torch.nn.functional.cross_entropy(logits, ignored, ignore_index=255))):
+        runs = [fn(logits, lab) for _ in range(5)]
+        grads = [torch.autograd.grad(r, logits)[0] for r in runs]
+        assert all(torch.equal(r, runs[0]) for r in runs)
+        assert all(torch.equal(g, grads[0]) for g in grads)
+        torch.testing.assert_close(runs[0], want.detach(), rtol=1e-6, atol=0)
