@@ -66,8 +66,9 @@ Phases (any failure exits non-zero):
      (`train/checkpoint.py`): 9a. pretrain-v2 (VoVNetPreTrain, B=12, clip
      5.0, one group, warmup-cosine) on labels with pixels at 255: launches
      of kernels 1, 2, 3 and 3b, no host sync, 5 steps that move the loss,
-     timed, split and profiled (cuDNN's FFT kernels counted), what the
-     repair of ROADMAP fault 7 saves (stage 4 no longer computed at v1), one
+     timed, split and profiled (cuDNN's FFT kernels counted), what ROADMAP
+     fault 7's statistics pass costs (stage 4 runs at v1 in training only,
+     without autograd, for its batch-norm statistics), one
      B=12 eval step (kernels 1, 3, 4, 5), and at B=1 the card against the
      CPU (forward, the pin bit for bit, a train step's gradients beside the
      card's own spread); 9b. its components saved as `best_pretrained.pth`
@@ -76,7 +77,23 @@ Phases (any failure exits non-zero):
      the flagship's float32 train step timed as in 9a, and a v2 pretrain's
      file into the v1 flagship dropping `depth_net` whole; 9c.
      `state_latest.pth` saved and restored into fresh objects, the state
-     bit for bit and the next step's loss bit for bit.
+     bit for bit and the next step's loss bit for bit;
+ 10. the nu-A2D data slice at full width (900x1600 JPEGs, `AugConfig`'s
+     defaults with flips, 128x352 inputs, the 200x200 grid): 10a. the
+     port's `synthetic.generate` fixture over every mini_train and mini_val
+     scene, timed; 10b. kernel 6 (JPEG IDCT) against its plain version on
+     12 fixture images, the C++ entropy decoder against the Python one on
+     2, kernel 7 (PIL-exact augmentation) against its plain version over 64
+     draws, one item through the CPU path against the card's, all bit for
+     bit, and both kernels timed at train-v2's batch beside their plain
+     versions, their bounds and (kernel 7) `F.interpolate`; 10c. the loader
+     alone: samples/s with 4 worker threads and with the machine's cores,
+     the host stage's parts, the device stage per batch; 10d. train-v2's
+     flagship (float32, vovnet39, LSS v1, B=8) fed by the loader over a
+     window of 20 steps (every launch counted, no host sync inside a step,
+     the loss moving, the window's mean step with its epoch starts, device
+     busy and idle share over a window) beside the same model on one
+     preloaded batch, then one eval step on a val batch.
 
 Phases 2, 2b and 2c run kernels, plain versions and yardsticks in full
 float32 (`ops/_precision.py::full_float32`); phases 3 to 8 run under
@@ -278,7 +295,8 @@ def time_ms(fn, reps=20, warmup=3):
 
 # substrings of the port's own kernel names, as the profiler lists them
 PORT_KERNEL_NAMES = ("deform_sample", "lift_splat", "keys_kernel", "rowptr_kernel",
-                     "DeviceRadixSortOnesweep", "ffn_ln", "conv3x3", "split_tf32")
+                     "DeviceRadixSortOnesweep", "ffn_ln", "conv3x3", "split_tf32",
+                     "idct_kernel", "color_kernel", "resize_h_kernel", "resize_v_kernel")
 # host-side CUDA calls that make the host wait for the device
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaMemcpy", "cudaDeviceSynchronize")
 # substrings of the kernels of cuDNN's FFT convolutions (for one float32
@@ -432,7 +450,7 @@ def kernel_cases(dev):
     import torch
 
     from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
-    from lss2_multimodal_nu_tpu_torch.ops import ffn
+    from lss2_multimodal_nu_tpu_torch.ops import ffn, img_aug, jpeg_idct
     from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
     from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
 
@@ -645,6 +663,12 @@ KERNELS = {
                "lss2_multimodal_nu_tpu/ops/ffn_pallas.py:87", 1, 0),
     "seg_head": ("lss2_multimodal_nu_tpu_torch/csrc/seg_head.cu",
                  "lss2_multimodal_nu_tpu/ops/seg_head_pallas.py:63", 2, 0),
+    # the data slice's kernels, run by the loader (phase 10), no model path:
+    # they replace the JAX package's PIL decode and resampling on the host
+    "jpeg_idct": ("lss2_multimodal_nu_tpu_torch/csrc/jpeg_idct.cu",
+                  "lss2_multimodal_nu_tpu/data/dataset.py:202", 0, 0),
+    "img_aug": ("lss2_multimodal_nu_tpu_torch/csrc/img_aug.cu",
+                "lss2_multimodal_nu_tpu/data/dataset.py:87", 0, 0),
 }
 
 
@@ -1415,26 +1439,22 @@ def drive_train(label, model, opt, sched, batch, wrappers, expected):
 
 
 def stage4_saving(label, model, opt, sched, batch, step):
-    """What fault 7's repair saves in a train step at LSS v1: the step as it
-    runs (the trunk stops after stage 3) against the step with stage 4
-    computed and thrown away, as before the repair, 5 steps each in turns
-    (repaired, unrepaired, unrepaired, repaired), host-clock medians; and
-    stage 4's forward alone on c3 (CUDA events). Returns the next step's
-    index."""
+    """What fault 7 costs and saves in a train step at LSS v1, where nothing
+    reads stage 4: the step as it runs (stage 4 in training for its
+    batch-norm statistics alone, without autograd) against the step without
+    that statistics pass, 5 steps each in turns (as it runs, without,
+    without, as it runs), host-clock medians; and stage 4's train forward
+    alone on c3 (CUDA events). Returns the next step's index."""
     import torch
 
     from lss2_multimodal_nu_tpu_torch.ops._precision import full_float32
     from lss2_multimodal_nu_tpu_torch.train.steps import train_step
 
-    def unrepaired(imgs):
-        b, n = imgs.shape[:2]
-        feats = model.backbone(imgs.reshape(b * n, *imgs.shape[2:]).to(model.dtype), True)
-        return feats["c3"], feats["c4"]
-
-    times = {"repaired": [], "unrepaired": []}
-    for kind in ("repaired", "unrepaired", "unrepaired", "repaired"):
-        if kind == "unrepaired":
-            model.encode_cameras = unrepaired
+    stage4 = model.backbone.backbone.stages[3]
+    times = {"with the statistics pass": [], "without": []}
+    for kind in ("with the statistics pass", "without", "without", "with the statistics pass"):
+        if kind == "without":
+            stage4.forward = lambda x: x
         for _ in range(5):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -1442,16 +1462,17 @@ def stage4_saving(label, model, opt, sched, batch, step):
             torch.cuda.synchronize()
             times[kind].append((time.perf_counter() - t1) * 1e3)
             step += 1
-        model.__dict__.pop("encode_cameras", None)
+        stage4.__dict__.pop("forward", None)
     med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
     imgs = batch["imgs"]
     with torch.no_grad(), full_float32():
         c3 = model.backbone(imgs.reshape(-1, *imgs.shape[2:]), False)["c3"]
-        stage4 = time_ms(lambda: model.backbone.backbone.stages[3](c3), reps=10)
-    print(f"fault 7, {label} train step B={imgs.shape[0]}: repaired {med['repaired']:.3f} ms, with "
-          f"stage 4 computed {med['unrepaired']:.3f} ms (host-clock medians of 10 in turns), "
-          f"saved {med['unrepaired'] - med['repaired']:.3f} ms; stage 4's train forward alone "
-          f"{stage4:.3f} ms (CUDA events)")
+        alone = time_ms(lambda: stage4(c3), reps=10)
+    with_pass, without = med["with the statistics pass"], med["without"]
+    print(f"fault 7, {label} train step B={imgs.shape[0]}: {with_pass:.3f} ms with stage 4's "
+          f"batch-norm statistics pass, {without:.3f} ms without (host-clock medians of 10 in "
+          f"turns): the pass costs {with_pass - without:.3f} ms a step; stage 4's train forward "
+          f"alone {alone:.3f} ms (CUDA events)")
     return step
 
 
@@ -1690,6 +1711,364 @@ def flagship_chain_phase(dev, wrappers, pretrain):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 10: the data slice at full width. The fixture: every mini_train and
+# mini_val scene at 900x1600, DATA_SAMPLES a scene (32 train samples, four
+# batches of 8; 8 val samples, one), rendered and encoded by a process pool;
+# train-v2's loader (B=8, rand_flip, 4 workers, the CLI's defaults).
+DATA_SAMPLES, LOADER_WORKERS, DATA_HW = 4, 4, (900, 1600)
+# 10c's epochs (32 batches); 10d's window of loader-fed steps (five epochs)
+RATE_EPOCHS, LOADER_STEPS = 8, 20
+DATA_WRAPPERS = ("jpeg_idct", "img_aug")
+
+
+def data_datasets(root, dev, is_train, device=None):
+    """The nu-A2D dataset over the phase-10 fixture at `AugConfig`'s defaults
+    with flips, augmentation seeded."""
+    from lss2_multimodal_nu_tpu_torch.config import AugConfig, GridConfig
+    from lss2_multimodal_nu_tpu_torch.data.dataset import NuA2DDataset
+    from lss2_multimodal_nu_tpu_torch.data.nuscenes_index import NuScenesIndex
+
+    return NuA2DDataset(NuScenesIndex("v1.0-mini", str(root)), is_train,
+                        AugConfig(rand_flip=True), GridConfig(), str(root), rng=0,
+                        device=device or dev)
+
+
+def data_fixture(root):
+    """10a: the port's `synthetic.generate` at full width, timed."""
+    import os
+
+    from lss2_multimodal_nu_tpu_torch.data import synthetic
+    from lss2_multimodal_nu_tpu_torch.data.splits import create_splits_scenes
+
+    sp = create_splits_scenes("nu_a2d")
+    workers = min(os.cpu_count() or 1, 8)
+    t0 = time.perf_counter()
+    synthetic.generate(str(root), scenes=sp["mini_train"] + sp["mini_val"],
+                       samples_per_scene=DATA_SAMPLES, img_hw=DATA_HW, seed=0, workers=workers)
+    n = len(list((root / "samples").glob("CAM_*/*.jpg")))
+    print(f"10a fixture: {len(sp['mini_train'])} mini_train + {len(sp['mini_val'])} mini_val "
+          f"scenes x {DATA_SAMPLES} samples, {n} JPEGs at {DATA_HW[0]}x{DATA_HW[1]} in "
+          f"{time.perf_counter() - t0:.1f} s ({workers} processes)")
+
+
+def _bytes_ms(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def data_pieces(dev, root):
+    """10b: the pieces bit for bit, and the kernels' numbers at train-v2's
+    batch (8 samples, 48 images). Kernel 6 against its plain version on 12
+    fixture images; the C++ entropy decoder against the Python one on 2;
+    kernel 7 against its plain version over 64 draws (zero-filled crops,
+    flips, both rotation signs, the eval path); one full-width item through
+    the CPU path (Python entropy decoder, plain IDCT, plain resampling)
+    against the card's. Returns (rows for the kernels line, failure or
+    None)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lss2_multimodal_nu_tpu_torch.config import AugConfig
+    from lss2_multimodal_nu_tpu_torch.core.augment import sample_augmentation
+    from lss2_multimodal_nu_tpu_torch.data import jpeg
+    from lss2_multimodal_nu_tpu_torch.data.dataset import collate
+    from lss2_multimodal_nu_tpu_torch.ops import img_aug, jpeg_idct
+
+    files = sorted((root / "samples").glob("CAM_*/*.jpg"))
+    data = [f.read_bytes() for f in files[::max(1, len(files) // 12)][:12]]
+    coefs = [jpeg.decode_coefficients(d, library=True) for d in data]
+    packed = jpeg_idct.pack(coefs)
+    c, q, m = (torch.from_numpy(a).to(dev) for a in packed[:3])
+    mb = jpeg_idct.max_blocks(packed[2], packed[0].shape[0])
+    rgb = jpeg_idct.decode(c, q, m, *packed[3:], mb)
+    same6 = torch.equal(rgb, jpeg_idct.decode_plain(c, q, m, *packed[3:]))
+    print(f"10b kernel 6 (jpeg_idct) on {len(data)} fixture images against its plain version: "
+          f"bit for bit {same6}")
+    t0 = time.perf_counter()
+    same_entropy = all(np.array_equal(jpeg.decode_coefficients(d, library=False).coefs, k.coefs)
+                       for d, k in zip(data[:2], coefs[:2]))
+    print(f"10b the C++ entropy decoder against the Python one on 2 full-size images: bit for "
+          f"bit {same_entropy} (Python {(time.perf_counter() - t0) / 2 * 1e3:.0f} ms an image)")
+
+    rng = np.random.default_rng(3)
+    conf = AugConfig(rand_flip=True)
+    draws = [sample_augmentation(conf, i % 8 != 0, rng) for i in range(64)]
+    cover = {"zero-filled crops": sum(p.resize_dims[0] < conf.final_dim[1] for p in draws),
+             "flips": sum(p.flip for p in draws), "rotations < 0": sum(p.rotate < 0 for p in draws),
+             "rotations > 0": sum(p.rotate > 0 for p in draws),
+             "eval draws": sum(p.rotate == 0 and not p.flip for p in draws)}
+    images = rgb[torch.arange(64, device=dev) % rgb.shape[0]]
+    tabs = img_aug.plan(draws, *packed[3:], conf.final_dim)
+    pt, ht, vt = (torch.from_numpy(a).to(dev) for a in tabs[:3])
+    got7 = img_aug.augment(images, pt, ht, vt, conf.final_dim, tabs[3])
+    same7 = torch.equal(got7, img_aug.augment_plain(images, pt, ht, vt, conf.final_dim))
+    print(f"10b kernel 7 (img_aug) over 64 draws ({cover}) against its plain version: bit for "
+          f"bit {same7}")
+
+    item_cpu = data_datasets(root, dev, True, "cpu")[5]
+    item_card = data_datasets(root, dev, True)[5]
+    same_item = set(item_cpu) == set(item_card) and all(
+        torch.equal(item_cpu[k], item_card[k].cpu()) for k in item_cpu)
+    print(f"10b one full-width train item (6 cameras) through the CPU path against the card's: "
+          f"bit for bit {same_item}; imgs {tuple(item_card['imgs'].shape)}")
+    if not (same6 and same_entropy and same7 and same_item and all(cover.values())):
+        return None, "phase 10b: a piece of the data slice differs from its plain version"
+
+    # the kernels' numbers at train-v2's batch: 8 samples, 48 images
+    ds = data_datasets(root, dev, True)
+    hb = collate([ds.host_item(i) for i in range(TRAIN_B)], conf.final_dim)
+    b6 = {k: hb["tensors"][k].to(dev) for k in ("coefs", "quant", "meta")}
+    b7 = {k: hb["tensors"][k].to(dev) for k in ("params", "htab", "vtab")}
+    n, ncam, h, w = hb["shape"]
+    dec = lambda: jpeg_idct.decode(b6["coefs"], b6["quant"], b6["meta"], h, w,  # noqa: E731
+                                   hb["max_blocks"])
+    rgb = dec()
+    ms6 = time_ms(dec, reps=10)
+    plain6 = time_ms(lambda: jpeg_idct.decode_plain(b6["coefs"], b6["quant"], b6["meta"], h, w),
+                     reps=2, warmup=1)
+    aug = lambda: img_aug.augment(rgb, b7["params"], b7["htab"], b7["vtab"],  # noqa: E731
+                                  conf.final_dim, hb["rows"])
+    ms7 = time_ms(aug, reps=10)
+    plain7 = time_ms(lambda: img_aug.augment_plain(rgb, b7["params"], b7["htab"], b7["vtab"],
+                                                   conf.final_dim), reps=2, warmup=1)
+    # yardstick: one antialiased bicubic resize of the batch to the eval size
+    # (close to PIL's, not PIL-exact: a time only)
+    x = rgb.permute(0, 3, 1, 2).float()
+    eval_hw = (int(h * max(conf.final_dim[0] / h, conf.final_dim[1] / w)),
+               int(w * max(conf.final_dim[0] / h, conf.final_dim[1] / w)))
+    lib7 = time_ms(lambda: F.interpolate(x, size=eval_hw, mode="bicubic", antialias=True),
+                   reps=10)
+    del x
+    # bounds: coefficients in, RGB out; the source windows read, float32 out
+    ht = {k: v.numpy() for k, v in hb["tensors"].items()}
+    nbytes = lambda *keys: sum(ht[k].nbytes for k in keys)  # noqa: E731
+    bytes6 = nbytes("coefs", "quant", "meta") + rgb.numel()
+    cols = [(int(t[t[:, 1] > 0, 0].min()), int((t[:, 0] + t[:, 1]).max())) if (t[:, 1] > 0).any()
+            else (0, 0) for t in ht["htab"]]
+    window = sum(int(r) * (c1 - c0) * 3 for r, (c0, c1) in zip(ht["params"][:, 13], cols))
+    bytes7 = (window + nbytes("params", "htab", "vtab")
+              + n * ncam * 3 * conf.final_dim[0] * conf.final_dim[1] * 4)
+    rows = {
+        "jpeg_idct": dict(max_abs_err=0.0, ms=ms6, plain_ms=plain6, bound_ms=_bytes_ms(bytes6),
+                          bound_by="bytes", library_ms=None),
+        "img_aug": dict(max_abs_err=0.0, ms=ms7, plain_ms=plain7, bound_ms=_bytes_ms(bytes7),
+                        bound_by="bytes", library_ms=lib7),
+    }
+    for name, r in rows.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+        print(f"10b {name} at train-v2's batch ({n * ncam} images of {h}x{w}): {r['ms']:.4f} ms "
+              f"(CUDA events, mean of 10), plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms (bytes), library call {lib}")
+    return rows, None
+
+
+def data_loader_rate(dev, root):
+    """10c: the loader alone (host and device stages, no model): samples/s
+    at B=8 over RATE_EPOCHS epochs of the train split with LOADER_WORKERS
+    and with os.cpu_count() worker threads, from the first batch to the
+    last (the first batch's wait printed apart; every later epoch's start
+    inside), and over the batches that start no epoch; the host stage's
+    parts per image and per sample on one thread; the device stage per
+    batch (CUDA events). Returns {workers: samples/s}."""
+    import os
+
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.data import jpeg
+    from lss2_multimodal_nu_tpu_torch.data.dataset import collate, device_stage
+    from lss2_multimodal_nu_tpu_torch.data.loader import DataLoader
+
+    ds = data_datasets(root, dev, True)
+    cores = os.cpu_count() or 1
+    rates = {}
+    for workers in sorted({LOADER_WORKERS, cores}):
+        dl = DataLoader(ds, TRAIN_B, shuffle=True, num_workers=workers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stamps, starts = [], []
+        for _ in range(RATE_EPOCHS):
+            for j, batch in enumerate(dl):
+                torch.cuda.current_stream().synchronize()  # the batch is on the card
+                stamps.append(time.perf_counter())
+                starts.append(j == 0)
+        end = stamps[-1]
+        rates[workers] = TRAIN_B * (len(stamps) - 1) / (end - stamps[0])
+        steps = list(zip(stamps, stamps[1:], starts[1:]))
+        gaps = [(b - a) * 1e3 for a, b, first in steps if not first]
+        ends = [(b - a) * 1e3 for a, b, first in steps if first]
+        print(f"10c loader alone, B={TRAIN_B}, {workers} worker threads: {rates[workers]:.2f} "
+              f"samples/s over {len(stamps)} batches of {RATE_EPOCHS} epochs ({len(ends)} epoch "
+              f"starts inside, {sum(ends) / len(ends):.1f} ms a batch that starts one); "
+              f"{TRAIN_B * 1e3 * len(gaps) / sum(gaps):.2f} samples/s over the {len(gaps)} "
+              f"batches that start none; first batch after {(stamps[0] - t0) * 1e3:.0f} ms, the "
+              f"whole {(end - t0):.2f} s; os.cpu_count() {cores}")
+    files = sorted((root / "samples").glob("CAM_*/*.jpg"))[:24]
+    blobs = [f.read_bytes() for f in files]
+    t0 = time.perf_counter()
+    for d in blobs:
+        jpeg.decode_coefficients(d, library=True)
+    decode_ms = (time.perf_counter() - t0) / len(blobs) * 1e3
+    t0 = time.perf_counter()
+    for rec in ds.ixes[:TRAIN_B]:
+        ds.get_binimg(rec)
+        ds.get_txt(rec)
+    labels_ms = (time.perf_counter() - t0) / TRAIN_B * 1e3
+    t0 = time.perf_counter()
+    items = [ds.host_item(i) for i in range(TRAIN_B)]
+    item_ms = (time.perf_counter() - t0) / TRAIN_B * 1e3
+    t0 = time.perf_counter()
+    hb = collate(items, ds.aug.final_dim, pin=True)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    stage_ms = time_ms(lambda: device_stage(hb, dev), reps=5, warmup=1)
+    print(f"10c host stage on one thread: entropy decoding {decode_ms:.2f} ms an image "
+          f"({sum(map(len, blobs)) / len(blobs) / 1e3:.0f} KB), labels {labels_ms:.2f} ms a "
+          f"sample, a whole sample {item_ms:.1f} ms ({TRAIN_B * 1e3 / item_ms / LOADER_WORKERS:.1f}"
+          f" batches/s on {LOADER_WORKERS} cores if they scale); collate into pinned memory "
+          f"{collate_ms:.1f} ms a batch ({hb['tensors']['coefs'].numel() * 2 / 1e6:.0f} MB of "
+          "coefficients); "
+          f"device stage {stage_ms:.3f} ms a batch of {TRAIN_B * 6} images (copies, kernels 6 "
+          "and 7; CUDA events)")
+    return rates
+
+
+def data_train(dev, root, wrappers):
+    """10d: train-v2's flagship at the CLI's defaults (vovnet39, LSS v1, V3,
+    float32, B=8, clip 10, two groups, warmup-cosine) fed by the loader (4
+    worker threads, flips): after one step that starts the loader and warms
+    the model, a window of LOADER_STEPS steps, each waited for and timed on
+    the host clock (the fixture's epochs are 4 batches, so a quarter of
+    them start one): every count set to 0 before the window and read after,
+    the losses finite and moving, the mean over the whole window (epoch
+    starts included), the median, and the steps that start an epoch apart.
+    Then a second such window under the profiler: its mean, device busy
+    over the same steps, and the idle share of the two. Host syncs inside
+    one step, and in the loader's next() apart. Beside it the same model
+    on one preloaded batch, both windows alike. Then one eval step on a
+    val batch (kernels 1, 3, 4, 5). Returns (train launches, failure or
+    None)."""
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.data.loader import DataLoader
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+    from lss2_multimodal_nu_tpu_torch.train.state import build_optimizer
+    from lss2_multimodal_nu_tpu_torch.train.steps import eval_step, train_step
+
+    cfg = chain_config("vovnet_transformer", batch_size=TRAIN_B, lr=1e-4, weight_decay=1e-8,
+                       max_grad_norm=10.0, num_epochs=60, warmup_epochs=5, use_schedule=True)
+    model = build_model(cfg, device=dev, seed=30)
+    perturb(model, seed=31)
+    opt, sched = build_optimizer(cfg, model.train(), steps_per_epoch=STEPS_PER_EPOCH)
+    dl = DataLoader(data_datasets(root, dev, True), TRAIN_B, shuffle=True,
+                    num_workers=LOADER_WORKERS)
+    starts = []  # for each batch handed out, whether it starts an epoch
+
+    def endless():
+        while True:
+            for j, batch in enumerate(dl):
+                starts.append(j == 0)
+                yield batch
+
+    it = endless()
+    step = 0
+
+    def window(next_batch):
+        """LOADER_STEPS train steps, each waited for: (host ms by step,
+        losses, whether each step's batch started an epoch)."""
+        nonlocal step
+        times, losses, first = [], [], []
+        torch.cuda.synchronize()
+        last = time.perf_counter()
+        for _ in range(LOADER_STEPS):
+            batch = next_batch()
+            first.append(next_batch is loaded and starts[-1])
+            m = train_step(model, opt, sched, batch, step)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times.append((now - last) * 1e3)
+            last = now
+            step += 1
+            losses.append(float(m["loss"]))
+        return times, losses, first
+
+    def profiled(next_batch):
+        out = []
+        busy, _, _, _ = device_profile(lambda: out.append(window(next_batch)))
+        return busy, out[0][0]
+
+    loaded = lambda: next(it)  # noqa: E731
+    train_step(model, opt, sched, next(it), step)
+    step += 1
+    torch.cuda.synchronize()
+    for f in wrappers.values():
+        f.launches = 0
+    times, losses, first = window(loaded)
+    launches = {name: f.launches for name, f in wrappers.items()}
+    print(f"10d loader-fed train-v2 flagship f32 B={TRAIN_B}, {LOADER_STEPS} steps: launches "
+          f"{launches}; losses {[round(x, 5) for x in losses]}")
+    want = {n: LOADER_STEPS * k[3] for n, k in KERNELS.items() if n not in DATA_WRAPPERS}
+    # the loader stages at most one batch ahead of the steps, two launches
+    # of each data kernel a batch
+    staged = range(2 * (LOADER_STEPS - 1), 2 * (LOADER_STEPS + 1) + 1)
+    if {n: launches[n] for n in want} != want or not all(launches[n] in staged
+                                                        for n in DATA_WRAPPERS):
+        return launches, f"loader-fed launch counts {launches}, expected {want} and " \
+                         f"{staged.start}-{staged.stop - 1} of each data kernel"
+    if not all(math.isfinite(x) for x in losses) or max(losses) - min(losses) <= 1e-3:
+        return launches, f"the loader-fed losses are wrong: {losses}"
+    batch = next(it)
+    _, _, _, syncs = device_profile(lambda: train_step(model, opt, sched, batch, step))
+    step += 1
+    _, _, _, loader_syncs = device_profile(lambda: next(it))
+    busy, ptimes = profiled(loaded)
+
+    pre = {k: v.clone() for k, v in batch.items()}
+    preloaded = lambda: pre  # noqa: E731
+    pre_times, _, _ = window(preloaded)
+    pre_busy, pre_ptimes = profiled(preloaded)
+    _, _, _, pre_syncs = device_profile(lambda: train_step(model, opt, sched, pre, step))
+    step += 1
+
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    epoch_steps = [t for t, f in zip(times, first) if f]
+    rest = [t for t, f in zip(times, first) if not f]
+    print(f"10d loader-fed step: {mean(times):.3f} ms a step over the window of {LOADER_STEPS} "
+          f"({TRAIN_B / mean(times) * 1e3:.2f} samples/s), median {med(times):.3f} "
+          f"({min(times):.3f}-{max(times):.3f}); the {len(epoch_steps)} steps that start an epoch "
+          f"{mean(epoch_steps):.3f} ms, the other {len(rest)} {mean(rest):.3f} ms; by step "
+          f"{[round(t, 1) for t in times]}")
+    print(f"10d loader-fed window under the profiler: {mean(ptimes):.3f} ms a step, device busy "
+          f"{busy / LOADER_STEPS:.3f} ms a step over the same {LOADER_STEPS} steps, idle share "
+          f"{1 - busy / sum(ptimes):.3f}; host syncs inside the step {json.dumps(syncs)}, in the "
+          f"loader's next() {json.dumps(loader_syncs)}")
+    print(f"10d preloaded batch, same model: {mean(pre_times):.3f} ms a step over the window of "
+          f"{LOADER_STEPS}, median {med(pre_times):.3f} ({min(pre_times):.3f}-"
+          f"{max(pre_times):.3f}), {TRAIN_B / mean(pre_times) * 1e3:.2f} samples/s; under the "
+          f"profiler {mean(pre_ptimes):.3f} ms a step, device busy {pre_busy / LOADER_STEPS:.3f} "
+          f"ms, idle share {1 - pre_busy / sum(pre_ptimes):.3f}; host syncs "
+          f"{json.dumps(pre_syncs)}; loader-fed / preloaded {mean(times) / mean(pre_times):.3f} "
+          f"on the window's mean, {med(times) / med(pre_times):.3f} on the median")
+    if syncs["cudaStreamSynchronize"] or syncs["cudaMemcpy"]:
+        return launches, f"the loader-fed train step makes host syncs: {syncs}"
+
+    vb = next(iter(DataLoader(data_datasets(root, dev, False), TRAIN_B, shuffle=False,
+                              num_workers=LOADER_WORKERS)))
+    model.eval()
+    for f in wrappers.values():
+        f.launches = 0
+    res = eval_step(model, vb, torch.zeros(4, 4, dtype=torch.int64, device=dev))
+    torch.cuda.synchronize()
+    eval_launches = {name: f.launches for name, f in wrappers.items()}
+    counted = int(res["confmat"].sum())
+    print(f"10d eval step on a val batch of {vb['imgs'].shape[0]}: launches {eval_launches}; "
+          f"loss {float(res['loss']):.6f}; {counted} pixels in the confusion matrix")
+    want = {name: k[2] for name, k in KERNELS.items()}
+    if eval_launches != want or counted != vb["binimg"].numel() or not math.isfinite(
+            float(res["loss"])):
+        return launches, f"the loader-fed eval step is wrong: {eval_launches}, {res['loss']}"
+    return launches, None
+
+
 def precision_flags():
     """torch's process-wide float32 precision flags, as a short string."""
     import torch
@@ -1713,7 +2092,7 @@ def main() -> int:
     from lss2_multimodal_nu_tpu_torch.models.factory import build_model
     from lss2_multimodal_nu_tpu_torch.ops import _build
     from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
-    from lss2_multimodal_nu_tpu_torch.ops import ffn
+    from lss2_multimodal_nu_tpu_torch.ops import ffn, img_aug, jpeg_idct
     from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
     from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
     from lss2_multimodal_nu_tpu_torch.ops._precision import full_float32
@@ -1759,7 +2138,8 @@ def main() -> int:
                 "deformable_sample_backward": ds.deformable_sample_combine_xy_backward,
                 "lift_splat": ls.fused_lift_splat,
                 "lift_splat_backward": ls.fused_lift_splat_backward,
-                "ffn_ln": ffn.fused_ffn_ln, "seg_head": sh.fused_seg_head}
+                "ffn_ln": ffn.fused_ffn_ln, "seg_head": sh.fused_seg_head,
+                "jpeg_idct": jpeg_idct.decode, "img_aug": img_aug.augment}
     by_dtype = {}
     for dtype, phase in (("bfloat16", "3"), ("float32", "3b")):
         by_dtype[dtype], err, numbers = eval_forward(dev, dtype, phase, wrappers)
@@ -1936,11 +2316,37 @@ def main() -> int:
     if err:
         return _fail(err)
     del pretrain
+    torch.cuda.empty_cache()
+
+    # ---- 10. the data slice at full width: the fixture, the pieces bit for
+    # bit, the loader alone, train-v2's flagship fed by it
+    import shutil
+
+    data_root = ROOT / "build" / "data10"
+    shutil.rmtree(data_root, ignore_errors=True)
+    try:
+        data_fixture(data_root)
+        data_rows, err = data_pieces(dev, data_root)
+        if err:
+            return _fail(err)
+        data_loader_rate(dev, data_root)
+        data_launches, err = data_train(dev, data_root, wrappers)
+        if err:
+            return _fail(err)
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
 
     kernels = []
     backward_outputs = {"deformable_sample_backward": ("dv", "dlx", "dly", "dattn"),
                         "lift_splat_backward": ("dfeat", "ddepth")}
     for name, (src, replaces, n_eval, _) in KERNELS.items():
+        if name in DATA_WRAPPERS:
+            kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                                launches=data_launches[name],
+                                launches_loader_fed_train_steps=data_launches[name],
+                                loader_fed_train_steps=LOADER_STEPS,
+                                dtype="uint8 -> float32", batch=TRAIN_B, **data_rows[name]))
+            continue
         if name in backward_outputs:
             outs = [bwd_rows[(o, "bfloat16", "uniform")] for o in backward_outputs[name]]
             row = dict(outs[0], max_abs_err=max(r["max_abs_err"] for r in outs))

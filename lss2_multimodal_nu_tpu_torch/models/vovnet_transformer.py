@@ -65,8 +65,8 @@ class VoVNetBEVBranch(nn.Module):
 
     def encode_cameras(self, imgs):
         """Backbone over the flattened (B*N) camera stack -> (c3, c4). At
-        LSS v1 nothing reads c4: the trunk stops after stage 3 and c4 is
-        None."""
+        LSS v1 nothing reads c4, and c4 is None: stage 4 runs only in
+        training, without autograd, for its batch-norm statistics."""
         b, n = imgs.shape[:2]
         with_c4 = self.cfg.model.lss_version == "v2"
         feats = self.backbone(imgs.reshape(b * n, *imgs.shape[2:]).to(self.dtype), with_c4)

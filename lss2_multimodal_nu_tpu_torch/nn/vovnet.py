@@ -81,8 +81,10 @@ class OsaStage(nn.Module):
 
 class VoVNetV2(nn.Module):
     """Returns {'c3': stage-3 output at stride 16, 'c4': stage-4 output at
-    stride 32}; with `with_c4=False` the trunk stops after stage 3 and
-    returns c3 alone."""
+    stride 32}; with `with_c4=False` it returns c3 alone, and stage 4 runs
+    only in training, without autograd, for its batch-norm running
+    statistics: the JAX package and the original repo update them from the
+    stage that nothing reads (ROADMAP fault 7)."""
 
     def __init__(self, model_name: str = "vovnet39"):
         super().__init__()
@@ -110,6 +112,9 @@ class VoVNetV2(nn.Module):
         feats = {"c3": x}
         if with_c4:
             feats["c4"] = self.stages[3](x)
+        elif self.training:
+            with torch.no_grad():
+                self.stages[3](x)
         return feats
 
 

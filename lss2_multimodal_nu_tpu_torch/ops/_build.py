@@ -136,6 +136,24 @@ def refuse_grad(name: str, *tensors) -> None:
                            "run the module in training mode or under torch.no_grad()")
 
 
+def on(device):
+    """`torch.cuda.device(device)` unless it is the current one already
+    (entering it costs the host a few microseconds a call)."""
+    import contextlib
+
+    import torch
+
+    same = device.index is None or device.index == torch.cuda.current_device()
+    return contextlib.nullcontext() if same else torch.cuda.device(device)
+
+
+def aligned(t):
+    """t contiguous and 16-byte aligned (the kernels load 16 bytes a
+    thread), copied if it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

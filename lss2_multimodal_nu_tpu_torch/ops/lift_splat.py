@@ -12,7 +12,6 @@ says what bounds it on the H100.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from functools import lru_cache
 
@@ -82,13 +81,6 @@ def _scratch_bytes(b: int, p: int, n_rows: int, forward: bool) -> int:
     return int(fn(b, p, n_rows, int(forward)))
 
 
-def _on(device):
-    """`torch.cuda.device(device)` unless it is the current one already
-    (entering it costs the host a few microseconds a call)."""
-    same = device.index is None or device.index == torch.cuda.current_device()
-    return contextlib.nullcontext() if same else torch.cuda.device(device)
-
-
 def _key_bits(b: int, p: int, n_rows: int) -> int:
     """bbits, the bits of the batch index in a CSR key (r << bbits) | b;
     ValueError where the B*P points or the keys would not fit in 31 bits
@@ -148,7 +140,7 @@ def sort_points(row, weight, n_rows: int):
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=row.device)
     order = torch.empty(b * p, dtype=torch.int32, device=row.device)
     rowptr = torch.empty(n_keys + 1, dtype=torch.int32, device=row.device)
-    with _on(row.device):
+    with _build.on(row.device):
         code = _fn("lift_splat_sort")(
             None if weight is None else _build.ptr(weight), _build.ptr(row), _build.ptr(scratch),
             nbytes, _build.ptr(order), _build.ptr(rowptr), b, p, n_rows,
@@ -197,7 +189,7 @@ def _forward(feat, depth, seg, fidx, n_voxels: int) -> torch.Tensor:
     nbytes = _scratch_bytes(b, p, n_voxels, True)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=feat.device)
     out = torch.empty(b, n_voxels, c, dtype=feat.dtype, device=feat.device)
-    with _on(feat.device):
+    with _build.on(feat.device):
         code = _fn(_SYMBOL[feat.dtype])(
             *map(_build.ptr, (feat, depth, seg, fidx, scratch)), nbytes, _build.ptr(out),
             b, p, r, c, n_voxels, _build.stream(feat.device))
@@ -232,7 +224,7 @@ def fused_lift_splat_backward(feat, depth, seg, fidx, g, *, _fidx_csr=None):
     order, ptr = _fidx_csr if _fidx_csr is not None else sort_points(fidx, None, r)
     dfeat = torch.empty_like(feat)
     ddepth = torch.empty(b, p, dtype=torch.float32, device=feat.device)
-    with _on(feat.device):
+    with _build.on(feat.device):
         code = _fn(_BWD_SYMBOL[feat.dtype])(
             *map(_build.ptr, (feat, depth32, seg, g, order, ptr, dfeat, ddepth)),
             b, r, c, n_voxels, _build.stream(feat.device))

@@ -32,7 +32,8 @@ from lss2_multimodal_nu_tpu_torch.models.factory import build_model
 from lss2_multimodal_nu_tpu_torch.port import state_dict_from_jax
 from lss2_multimodal_nu_tpu_torch.train import state as ts, steps as tsteps
 from test_torch_modules import FINAL_DIM, XB, camera_inputs, random_variables
-from test_torch_train import _compare_grads, _flat, _grad_capture, _no_flax_dropout
+from test_torch_train import (_compare_grads, _flat, _grad_capture, _no_flax_dropout,
+                              stage4_statistics_match_jax)
 
 T = torch.from_numpy
 B = 2
@@ -124,9 +125,10 @@ def test_train_step_grads_match_jax(stepped):
     """Every leaf's gradient, carried back to the JAX layout through the JAX
     package's porter with the configuration's flags, under the main
     configuration's per-leaf limits (`test_torch_train.py::_compare_grads`).
-    At LSS v1 nothing reads the trunk's last stage (c4): the port leaves its
-    gradient None (autograd never reaches it), JAX's is exactly zero; those
-    leaves are held to that and left out of the per-leaf limits."""
+    At LSS v1 nothing reads the trunk's last stage (c4): the port runs it
+    without autograd and leaves its gradient None, JAX's is exactly zero;
+    those leaves are held to that, and their batch-norm statistics by
+    `test_stage_4_batch_norm_statistics_match_jax`."""
     flags, _, new_state, _, model, _ = stepped
     sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
     unused = {name for name, p in model.named_parameters() if p.grad is None}
@@ -142,6 +144,21 @@ def test_train_step_grads_match_jax(stepped):
             assert not got[k].any() and not want[k].any(), k
             del got[k], want[k]
     _compare_grads(got, want, f"port vs JAX, {flags}")
+
+
+def test_stage_4_batch_norm_statistics_match_jax(stepped):
+    """Stage 4's batch-norm running statistics after the train step against
+    JAX's (`test_torch_train.py::stage4_statistics_match_jax`): at LSS v1,
+    where nothing reads the stage and it runs for its statistics alone
+    (ROADMAP fault 7), and at v2 (the V1 ablation), where c4 feeds the
+    depth net."""
+    flags, _, new_state, _, model, _ = stepped
+    _, cfg = _configs(flags)
+    args = camera_inputs(B, seed=31)
+    imgs = T(np.ascontiguousarray(args[0].transpose(0, 1, 4, 2, 3)))
+    variables = random_variables(j_build_model(_configs(flags)[0]), args, seed=33)
+    fresh = _port_model(cfg, variables, flags)
+    assert stage4_statistics_match_jax(model, fresh, new_state.batch_stats, imgs, **flags) > 0
 
 
 @pytest.mark.parametrize("model_name", ["vovnet57", "vovnet99"])

@@ -1,7 +1,9 @@
 """The port stands alone: no module of `lss2_multimodal_nu_tpu_torch`, and
-not `chip_smoke.py`, imports JAX, flax, Orbax or the JAX package; the port imports
-with those made unimportable; and `chip_smoke.py` refuses to run without a
-CUDA card or outside a checkout."""
+not `chip_smoke.py`, imports JAX, flax, Orbax or the JAX package, nor the
+image libraries the JAX package's data pipeline uses (PIL, OpenCV,
+torchvision), so that the port runs where none is installed; the port
+imports with all of those made unimportable; and `chip_smoke.py` refuses to run without a CUDA
+card or outside a checkout."""
 import ast
 import shutil
 import subprocess
@@ -13,6 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "lss2_multimodal_nu_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "lss2_multimodal_nu_tpu"}
+IMAGE_LIBRARIES = {"PIL", "cv2", "torchvision"}
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -44,6 +47,21 @@ import chip_smoke
 assert not BLOCK & {{n.split(".")[0] for n in sys.modules}}
 print("imported", len([n for n in sys.modules if n.startswith(pkg.__name__)]))
 """
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_image_library_imports(path):
+    assert not set(_imported_roots(path)) & IMAGE_LIBRARIES
+
+
+def test_port_imports_without_image_libraries():
+    """Every module, the data pipeline's included, with PIL, OpenCV and
+    torchvision made unimportable as well as JAX."""
+    code = _BLOCKED_IMPORT.format(blocked=FORBIDDEN | IMAGE_LIBRARIES)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 46
 
 
 def test_port_imports_without_jax():

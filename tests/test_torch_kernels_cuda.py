@@ -12,7 +12,11 @@ repeated bit for bit, their index preparation against the CPU's, their
 refusal of rows that are no whole number of 16-byte slices, and no host
 sync in a second call; both again at Stack A's width, C=64 (B=1 and 3, a
 voxel of one point, no live point at all), and through `lift_splat` with
-C=64 and C=128 alternating on the frustum's one cached CSR. Plus the whole
+C=64 and C=128 alternating on the frustum's one cached CSR. The data
+slice's kernels bit for bit against their plain versions: the JPEG IDCT at
+odd sizes mixing 4:2:0, 4:4:4 and gray, the augmentation over train and eval
+draws, the C++ entropy decoder against the Python one, and the loader on the
+card against the CPU with no host sync in its device stage. Plus the whole
 flagship in float32 on the card against the CPU at a 30x30 BEV grid, in
 eval and for one train step with its gradients, with TF32 turned off by the
 caller and under torch's defaults; and Stack A's BevTxt at B=1 on the card
@@ -900,3 +904,133 @@ def test_bev_losses_repeat_bit_for_bit(dev):
         assert all(torch.equal(r, runs[0]) for r in runs)
         assert all(torch.equal(g, grads[0]) for g in grads)
         torch.testing.assert_close(runs[0], want.detach(), rtol=1e-6, atol=0)
+
+
+# ---- the data slice: kernel 6 (JPEG IDCT), kernel 7 (augmentation), the host
+# entropy decoder. JPEGs are written by the port's own encoder (this file
+# runs where PIL is not installed); everything is held bit for bit.
+
+def _random_coefficients(rng, h, w, ncomp, sampling):
+    """A `Coefficients` of random quantised values (small, as real blocks
+    have them) with the standard tables at a random quality."""
+    from lss2_multimodal_nu_tpu_torch.data import jpeg
+
+    qy, qc = jpeg.quality_tables(int(rng.integers(50, 101)))
+    hs, vs = sampling
+    mx, my = -(-w // (8 * hs)), -(-h // (8 * vs))
+    n = my * vs * mx * hs + (ncomp - 1) * mx * my
+    coefs = np.clip(np.round(rng.laplace(0, 3, (n, 64))), -200, 200).astype(np.int16)
+    coefs[:, 0] = rng.integers(-60, 60, n)
+    quant = np.stack([qy, qc, qc][:ncomp]).astype(np.int32)
+    return jpeg.Coefficients(h, w, sampling, quant, coefs)
+
+
+@pytest.mark.parametrize("h, w", [(1, 1), (3, 5), (17, 23), (90, 160), (225, 400), (900, 1600)])
+def test_jpeg_idct_matches_plain(dev, h, w):
+    """Kernel 6 against its plain version on one batch mixing 4:2:0, 4:4:4
+    and one-component images, at odd sizes (partial MCUs, chroma 1-2 wide
+    where libjpeg replicates instead of the fancy upsampling)."""
+    from lss2_multimodal_nu_tpu_torch.ops import jpeg_idct
+
+    rng = np.random.default_rng(h * 1000 + w)
+    kinds = [(3, (2, 2)), (3, (1, 1)), (1, (1, 1)), (3, (2, 2))]
+    images = [_random_coefficients(rng, h, w, n, s) for n, s in kinds]
+    coefs, quant, meta, hh, ww = jpeg_idct.pack(images)
+    cpu = [torch.from_numpy(a) for a in (coefs, quant, meta)]
+    most = jpeg_idct.max_blocks(meta, coefs.shape[0])
+    want = jpeg_idct.decode(*cpu, hh, ww, most)
+    before = jpeg_idct.decode.launches
+    got = jpeg_idct.decode(*[t.to(dev) for t in cpu], hh, ww, most)
+    torch.cuda.synchronize()
+    assert jpeg_idct.decode.launches == before + 2
+    assert torch.equal(got.cpu(), want)
+
+
+def test_jpeg_idct_refuses_mixed_sizes_and_dtypes(dev):
+    from lss2_multimodal_nu_tpu_torch.ops import jpeg_idct
+
+    rng = np.random.default_rng(1)
+    with pytest.raises(ValueError):
+        jpeg_idct.pack([_random_coefficients(rng, 16, 16, 3, (2, 2)),
+                        _random_coefficients(rng, 16, 24, 3, (2, 2))])
+    coefs, quant, meta, h, w = jpeg_idct.pack([_random_coefficients(rng, 16, 16, 3, (2, 2))])
+    with pytest.raises(ValueError):
+        jpeg_idct.decode(torch.from_numpy(coefs).to(dev).int(), torch.from_numpy(quant).to(dev),
+                         torch.from_numpy(meta).to(dev), h, w, 4)
+
+
+@pytest.mark.parametrize("h, w, final_dim", [(225, 400, (32, 88)), (90, 160, (32, 88)),
+                                             (900, 1600, (128, 352)), (37, 61, (13, 29))])
+def test_img_aug_matches_plain(dev, h, w, final_dim):
+    """Kernel 7 against its plain version over 24 draws each: train draws
+    with flips and rotations of both signs, crops past the resized image,
+    and eval draws (no rotation)."""
+    from lss2_multimodal_nu_tpu_torch.config import AugConfig as TAug
+    from lss2_multimodal_nu_tpu_torch.core.augment import sample_augmentation
+    from lss2_multimodal_nu_tpu_torch.ops import img_aug
+
+    rng = np.random.default_rng(h + w)
+    conf = TAug(H=h, W=w, final_dim=final_dim, rand_flip=True)
+    draws = [sample_augmentation(conf, i % 4 != 0, rng) for i in range(24)]
+    assert any(p.flip for p in draws) and any(p.rotate < 0 for p in draws)
+    assert any(p.rotate > 0 for p in draws) and any(p.rotate == 0 for p in draws)
+    images = torch.from_numpy(rng.integers(0, 256, (24, h, w, 3), dtype=np.uint8))
+    params, htab, vtab, rows = img_aug.plan(draws, h, w, final_dim)
+    tabs = [torch.from_numpy(a) for a in (params, htab, vtab)]
+    want = img_aug.augment(images, *tabs, final_dim, rows)
+    before = img_aug.augment.launches
+    got = img_aug.augment(images.to(dev), *[t.to(dev) for t in tabs], final_dim, rows)
+    torch.cuda.synchronize()
+    assert img_aug.augment.launches == before + (2 if rows else 1)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("h, w, quality", [(1, 1, 95), (17, 23, 50), (90, 160, 95),
+                                           (225, 400, 75), (900, 1600, 95)])
+def test_entropy_decoder_matches_python(dev, h, w, quality):
+    """The C++ entropy decoder (`csrc/jpeg_entropy.cu`, built with the
+    kernels) against the Python one on the port encoder's files."""
+    from lss2_multimodal_nu_tpu_torch.data import jpeg
+
+    img = np.clip(np.random.default_rng(h).normal(120, 40, (h, w, 3)), 0, 255).astype(np.uint8)
+    data = jpeg.encode(img, quality)
+    got = jpeg.decode_coefficients(data, library=True)
+    want = jpeg.decode_coefficients(data, library=False)
+    np.testing.assert_array_equal(got.coefs, want.coefs)
+    with pytest.raises(jpeg.JpegError):
+        jpeg.decode_coefficients(data[:len(data) // 2] + bytes(8) + data[-2:], library=True)
+
+
+def test_loader_on_the_card_matches_the_cpu(dev, tmp_path):
+    """The port's fixture at 90x160 through the loader on the card (C++
+    entropy decoder, kernels 6 and 7, pinned copies one batch ahead on a
+    side stream) and on the CPU (plain versions): the same batches bit for
+    bit, train (flips, two epochs) and val; the device stage makes no host
+    sync."""
+    from lss2_multimodal_nu_tpu_torch.config import AugConfig as TAug, GridConfig as TGrid
+    from lss2_multimodal_nu_tpu_torch.data import dataset, loader, nuscenes_index, synthetic
+
+    root = str(tmp_path)
+    synthetic.generate(root, seed=4)
+    aug = TAug(H=90, W=160, final_dim=(32, 88), rand_flip=True)
+    for is_train in (True, False):
+        runs = {}
+        for device in ("cpu", dev):
+            ds_ = dataset.NuA2DDataset(nuscenes_index.NuScenesIndex("v1.0-mini", root), is_train,
+                                       aug, TGrid(), root, rng=5, device=device)
+            dl = loader.DataLoader(ds_, 2, shuffle=is_train, num_workers=2)
+            runs[str(device)] = [b for _ in range(2 if is_train else 1) for b in dl]
+        torch.cuda.synchronize()
+        cpu, card = runs["cpu"], runs[str(dev)]
+        assert len(cpu) == len(card) > 0
+        for a, b in zip(cpu, card):
+            assert set(a) == set(b)
+            for k in a:
+                assert b[k].device.type == "cuda" and torch.equal(a[k], b[k].cpu()), k
+    hb = next(iter(loader.DataLoader(ds_, 2, shuffle=False, num_workers=1).host_batches()))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch = dataset.device_stage(hb, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert batch["imgs"].shape == (2, 6, 3, 32, 88)

@@ -2,7 +2,8 @@
 from-scratch `VoVNetSimple`, against the JAX package on the CPU, float32,
 at the dryrun shapes of `test_torch_model.py` (6 cameras at 32x96, a 32x32
 BEV grid), with the weights carried JAX -> port by `state_dict_from_jax`;
-and the repair of ROADMAP fault 7 (at LSS v1 the trunk stops after stage 3).
+and ROADMAP fault 7 (at LSS v1 nothing reads stage 4: it runs only in
+training, without autograd, for its batch-norm statistics).
 
 Tolerances are those the other port tests use for the same quantities:
 the BEV logits 2e-3 (`test_torch_model.py`); the train step's loss 1e-4
@@ -11,7 +12,9 @@ relative, grad_norm 2e-3 relative and each gradient by
 and its confusion matrix equal up to pixels whose top two logits are
 within 2e-3 (`test_torch_train.py::test_eval_step_matches_jax`); the
 optimizer 1e-7 against optax (`test_torch_train.py::test_optimizer_matches_optax`);
-a bare trunk 1e-4 of its largest activation (`test_torch_modules.py`)."""
+a bare trunk 1e-4 of its largest activation (`test_torch_modules.py`);
+batch-norm running statistics 2e-4 of their largest value
+(`test_torch_train.py::test_train_step_batch_norm_statistics_match_jax`)."""
 import functools
 
 import jax
@@ -33,7 +36,8 @@ from lss2_multimodal_nu_tpu_torch.nn.vovnet import VoVNetSimple
 from lss2_multimodal_nu_tpu_torch.port import state_dict_from_jax
 from lss2_multimodal_nu_tpu_torch.train import state as ts, steps as tsteps
 from test_torch_modules import FINAL_DIM, XB, camera_inputs, random_variables
-from test_torch_train import _compare_grads, _flat, _grad_capture, _no_flax_dropout
+from test_torch_train import (_compare_grads, _flat, _grad_capture, _no_flax_dropout,
+                              stage4_statistics_match_jax)
 
 T = torch.from_numpy
 B = 2
@@ -190,6 +194,16 @@ def test_train_step_matches_jax(stepped):
     _compare_grads(got, want, "pretrain, port vs JAX")
 
 
+def test_stage_4_batch_norm_statistics_match_jax(stepped, pretrain_v1):
+    """ROADMAP fault 7: at LSS v1 the train step still updates stage 4's
+    batch-norm running statistics, as JAX's does, though nothing reads the
+    stage (`test_torch_train.py::stage4_statistics_match_jax`)."""
+    v, _, _, variables, _, _, cfg, _, tbatch = pretrain_v1
+    _, new_state, _, model = stepped
+    assert stage4_statistics_match_jax(model, _fresh(cfg, variables, v), new_state.batch_stats,
+                                       tbatch["imgs"], strict=False, lss_version=v) > 0
+
+
 def test_loss_ignores_255(pretrain):
     """The pretrain's loss is the unweighted cross entropy over the pixels
     not at 255 (JAX `train/steps.py:44-46`): the JAX function on the port's
@@ -298,18 +312,30 @@ def test_vovnet_simple_matches_jax():
 
 @pytest.mark.parametrize("family", ["vovnet_pretrain", "vovnet_transformer"])
 def test_stage_4_runs_only_at_lss_v2(family):
-    """ROADMAP fault 7: at LSS v1 nothing reads the trunk's stage 4 (c4),
-    and the port no longer computes it, in eval or in training; at v2 it
-    does, once a forward."""
+    """ROADMAP fault 7: stage 4 (c4) feeds the model only at LSS v2, where it
+    runs once a forward, in eval and in training. At v1 nothing reads it:
+    it does not run in eval, and in training it runs once a forward without
+    autograd, for its batch-norm statistics alone (which move, while its
+    output reaches nothing)."""
     args = _port_batch(camera_inputs(1, seed=51), _labels(53)[:1])
     calls = {}
     for v in ("v1", "v2"):
         _, cfg = _configs(family, v)
         model = build_model(cfg, device="cpu")
-        hook = model.backbone.backbone.stages[3].register_forward_hook(
-            lambda *a, v=v: calls.__setitem__(v, calls.get(v, 0) + 1))
-        with torch.no_grad():
-            model(*(args[k] for k in tsteps.MODEL_INPUTS))
-            tsteps.train_without_dropout(model)(*(args[k] for k in tsteps.MODEL_INPUTS))
+        stage4 = model.backbone.backbone.stages[3]
+        grad_mode = []
+
+        def record(m, inputs, output, v=v):
+            calls.setdefault(v, []).append("train" if m.training else "eval")
+            grad_mode.append(torch.is_grad_enabled())
+
+        hook = stage4.register_forward_hook(record)
+        before = {k: t.clone() for k, t in stage4.state_dict().items() if "running" in k}
+        model(*(args[k] for k in tsteps.MODEL_INPUTS))
+        tsteps.train_without_dropout(model)(*(args[k] for k in tsteps.MODEL_INPUTS))
         hook.remove()
-    assert calls == {"v2": 2}
+        moved = [k for k, t in stage4.state_dict().items() if k in before
+                 and not torch.equal(t, before[k])]
+        assert moved and len(moved) == len(before), v
+        assert grad_mode == ([True, True] if v == "v2" else [False]), v
+    assert calls == {"v1": ["train"], "v2": ["eval", "train"]}

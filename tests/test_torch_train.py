@@ -437,6 +437,32 @@ def test_train_step_batch_norm_statistics_match_jax(stepped):
         np.testing.assert_allclose(got[k], want, atol=2e-4 * np.abs(want).max(), err_msg=k)
 
 
+def stage4_statistics_match_jax(model, fresh, jax_batch_stats, imgs, **porter_kw):
+    """Stage 4 of the VoVNet trunk, after one train step: its batch-norm
+    running statistics against JAX's, by `test_train_step_batch_norm_statistics_match_jax`'s
+    rule (running_var from JAX's biased variance by n/(n-1); 2e-4 of the
+    layer's largest value). `fresh` holds the statistics before the step;
+    n, the elements per channel of every stage-4 batch norm's input, is
+    B*N times stage 4's output area."""
+    with torch.no_grad():
+        c4 = fresh.backbone.backbone.eval()(imgs.reshape(-1, *imgs.shape[2:]), True)["c4"]
+    n = c4.numel() // c4.shape[1]
+    stats = [port_state_dict("vovnet_transformer", {k: v.detach().numpy() for k, v in
+                                                    m.state_dict().items()}, **porter_kw)[1]
+             for m in (model, fresh)]
+    got, old, jax_new = (_flat(t) for t in (*stats, jax_batch_stats))
+    keys = [k for k in jax_new if "['stage4_" in k]
+    assert keys and all(k in got for k in keys)
+    for k in keys:
+        want = jax_new[k]
+        if k.endswith("['var']"):
+            want = 0.9 * old[k] + (jax_new[k] - 0.9 * old[k]) * n / (n - 1)
+        assert np.abs(jax_new[k] - old[k]).max() > 0, k  # JAX's moved
+        assert np.abs(got[k] - old[k]).max() > 0, k  # and the port's
+        np.testing.assert_allclose(got[k], want, atol=2e-4 * np.abs(want).max(), err_msg=k)
+    return len(keys)
+
+
 def test_eval_step_matches_jax(flagship):
     """`eval_step` against `make_eval_step`: the loss to 1e-5 relative; the
     confusion matrix and the action/description predictions equal, except
