@@ -93,7 +93,25 @@ Phases (any failure exits non-zero):
      window of 20 steps (every launch counted, no host sync inside a step,
      the loss moving, the window's mean step with its epoch starts, device
      busy and idle share over a window) beside the same model on one
-     preloaded batch, then one eval step on a val batch.
+     preloaded batch, then one eval step on a val batch;
+ 11. the CLI (`python -m lss2_multimodal_nu_tpu_torch.cli`) through
+     `cli.main`, every subcommand at its defaults (the card, float32,
+     process workers) but `--version mini`, the phase-10 fixture's dataroot
+     and one epoch, each in a working directory of its own; only `train`
+     keeps the default process workers (10), the other training runs take
+     worker threads (`CLI_THREADS`): 11b. pretrain-v2
+     (validating every epoch), train-v2 warm-started by its default
+     `--pretrained_path` (the four components bit for bit), train-v2
+     `--resume --nepochs 2` from its `state_latest.pth` (bit for bit);
+     11c. pretrain (LSS b4), train (BevTxt b4), train-onlybev, predict (B=1)
+     on train's `model0.pt`, predict-iou on pretrain's; for each run its
+     wall seconds, its train steps (each waited for) with the median steady
+     step and samples/s, its evaluations' seconds and host syncs (profiler:
+     none but the read of the results), every kernel's launches (each
+     expected kernel at least once), the files it wrote, finite losses;
+     11d. predict on the card against `predict --device cpu` on train's
+     `model0.pt` with its batch norms calibrated, within the CPU tests'
+     limits (`tests/test_torch_cli.py`).
 
 Phases 2, 2b and 2c run kernels, plain versions and yardsticks in full
 float32 (`ops/_precision.py::full_float32`); phases 3 to 8 run under
@@ -1712,12 +1730,13 @@ def flagship_chain_phase(dev, wrappers, pretrain):
 
 
 # phase 10: the data slice at full width. The fixture: every mini_train and
-# mini_val scene at 900x1600, DATA_SAMPLES a scene (32 train samples, four
-# batches of 8; 8 val samples, one), rendered and encoded by a process pool;
-# train-v2's loader (B=8, rand_flip, 4 workers, the CLI's defaults).
-DATA_SAMPLES, LOADER_WORKERS, DATA_HW = 4, 4, (900, 1600)
-# 10c's epochs (32 batches); 10d's window of loader-fed steps (five epochs)
-RATE_EPOCHS, LOADER_STEPS = 8, 20
+# mini_val scene at 900x1600, DATA_SAMPLES a scene (48 train samples, six
+# batches of 8; 12 val samples, one batch of pretrain-v2's 12, which phase 11
+# needs), rendered and encoded by a process pool; train-v2's loader (B=8,
+# rand_flip, 4 workers, the CLI's defaults).
+DATA_SAMPLES, LOADER_WORKERS, DATA_HW = 6, 4, (900, 1600)
+# 10c's epochs (30 batches); 10d's window of loader-fed steps (3.3 epochs)
+RATE_EPOCHS, LOADER_STEPS = 5, 20
 DATA_WRAPPERS = ("jpeg_idct", "img_aug")
 
 
@@ -2069,6 +2088,433 @@ def data_train(dev, root, wrappers):
     return launches, None
 
 
+# phase 11: the CLI on the card. The kernels each subcommand's path launches
+# (kernel 2 and 3b only where it trains, 4 and 5 only in Stack B's
+# validation, 6 and 7 in the loader of every path)
+CLI_STACK_B = tuple(KERNELS)
+CLI_STACK_A = ("lift_splat", "lift_splat_backward", "jpeg_idct", "img_aug")
+CLI_PREDICT = ("lift_splat", "jpeg_idct", "img_aug")
+CLI_LOG_PATTERNS = ("Loading pre-trained", "resuming from", "loading ", "  format ",
+                    "  dropped ", "mean IoU", "val_loss", "saved best", "Best mIoU", "not found")
+# `predict` on the card against `--device cpu`: the CPU tests' limits on the
+# slice (`tests/test_torch_cli.py`): confusion matrices apart in at most
+# 1e-4 of the pixels, each IoU within 1e-3, the loss within 1e-4 relative,
+# the act/desc F1 scores equal
+CLI_PIXELS_TOL, CLI_IOU_TOL, CLI_LOSS_RTOL = 1e-4, 1e-3, 1e-4
+# subcommand run -> the launches counted over it, for the `kernels` line
+CLI_LAUNCHES = {}
+# `train` runs at its default process workers (10); the other training runs
+# take worker threads: on the card's host a pool of worker processes waits
+# tens of seconds for its first batch (phase 11 prints `train`'s split
+# beside the others'), and a training run starts three (the loader's probe,
+# train, validation), which would take the script past its time limit
+CLI_THREADS = ["--worker_type", "thread"]
+
+
+def port_wrappers():
+    """Every kernel's wrapper, whose `launches` counts its launches."""
+    from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
+    from lss2_multimodal_nu_tpu_torch.ops import ffn, img_aug, jpeg_idct
+    from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
+    from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
+
+    return {"deformable_sample": ds.deformable_sample_combine_xy,
+            "deformable_sample_backward": ds.deformable_sample_combine_xy_backward,
+            "lift_splat": ls.fused_lift_splat,
+            "lift_splat_backward": ls.fused_lift_splat_backward,
+            "ffn_ln": ffn.fused_ffn_ln, "seg_head": sh.fused_seg_head,
+            "jpeg_idct": jpeg_idct.decode, "img_aug": img_aug.augment}
+
+
+def _descendants_rss():
+    """(this process's resident memory, the summed resident memory of its
+    descendants: the loader's forkserver and workers), bytes, from /proc:
+    resident pages less those shared with files (the libraries a forked
+    worker shares with its forkserver)."""
+    import os
+
+    children = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+            children.setdefault(ppid, []).append(int(d))
+
+    def rss(pid):
+        try:
+            with open(f"/proc/{pid}/statm") as f:
+                resident, shared = f.read().split()[1:3]
+            return (int(resident) - int(shared)) * os.sysconf("SC_PAGE_SIZE")
+        except (OSError, IndexError, ValueError):
+            return 0
+
+    todo, total = list(children.get(os.getpid(), [])), 0
+    while todo:
+        pid = todo.pop()
+        total += rss(pid)
+        todo += children.get(pid, [])
+    return rss(os.getpid()), total
+
+
+def count_syncs(fn):
+    """The calls of `SYNC_CALLS` that `fn` makes, and of
+    `cudaLaunchKernel` (the proof that the runtime's calls were recorded),
+    under torch.profiler with CUDA activity alone (the host's operators
+    unrecorded, so that reading the profile of a long call stays cheap);
+    the profiler's own stop adds a `cudaDeviceSynchronize`, not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    syncs = {k: 0 for k in (*SYNC_CALLS, "cudaLaunchKernel")}
+    for e in prof.events():
+        if e.name in syncs:
+            syncs[e.name] += 1
+        elif e.name.startswith("cudaLaunchKernel"):  # cudaLaunchKernelExC (cuBLAS)
+            syncs["cudaLaunchKernel"] += 1
+    syncs["cudaDeviceSynchronize"] = max(syncs["cudaDeviceSynchronize"] - 1, 0)
+    return syncs
+
+
+class CliRecorder:
+    """Instruments one `cli.main` run from outside: every train step waited
+    for and timed (host clock between `torch.cuda.synchronize()` calls) with
+    its loss read, and every evaluation timed and profiled (`count_syncs`,
+    on a card); train-v2's model state taken right after its warm start or
+    restore; the host memory at the first step. The clock at each step's
+    and evaluation's ends (`marks`) splits the run's wall time."""
+
+    def __init__(self, cuda):
+        self.cuda = cuda
+        self.steps, self.losses, self.bsize = [], [], None
+        self.evals, self.snapshot, self.marks, self.memory = [], None, [], None
+
+    def _sync(self):
+        import torch
+
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def patches(self):
+        import contextlib
+        import unittest.mock as mock
+
+        from lss2_multimodal_nu_tpu_torch import cli
+        from lss2_multimodal_nu_tpu_torch.train import steps
+
+        train_step, evaluate, warm = steps.train_step, cli._evaluate, cli._maybe_stage1_warmstart
+
+        def timed_step(model, opt, sched, batch, step, mark=None):
+            if self.memory is None:  # the epoch's workers are up, their batches queued
+                self.memory = _descendants_rss()
+            self._sync()
+            t0 = time.perf_counter()
+            m = train_step(model, opt, sched, batch, step)
+            self._sync()
+            self.marks.append(("step", t0, time.perf_counter()))
+            self.steps.append((time.perf_counter() - t0) * 1e3)
+            self.losses.append(float(m["loss"]))
+            self.bsize = batch["imgs"].shape[0]
+            return m
+
+        def profiled_eval(cfg, model, loader, no_bev=False):
+            out = []
+
+            def run():
+                self._sync()
+                t0 = time.perf_counter()
+                out.append(evaluate(cfg, model, loader, no_bev))
+                self._sync()
+                out.append((t0, time.perf_counter()))
+
+            t_call = time.perf_counter()
+            syncs = count_syncs(run) if self.cuda else (run(), {})[1]
+            (t0, t1), t_end = out[1], time.perf_counter()
+            self.marks.append(("eval", t0, t1))
+            self.evals.append(dict(s=t1 - t0, profiler=(t_end - t_call) - (t1 - t0),
+                                   batches=len(loader), syncs=syncs, loss=out[0]["loss"]))
+            return out[0]
+
+        def spy(args, family, model, device, restored):
+            warm(args, family, model, device, restored)
+            if family == "vovnet_transformer":
+                self.snapshot = {k: v.detach().to("cpu", copy=True)
+                                 for k, v in model.state_dict().items()}
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(steps, "train_step", timed_step))
+        stack.enter_context(mock.patch.object(cli, "_evaluate", profiled_eval))
+        stack.enter_context(mock.patch.object(cli, "_maybe_stage1_warmstart", spy))
+        return stack
+
+
+def run_cli(argv, compare=None):
+    """`cli.main(argv)` in the current directory, every kernel count set to
+    0 before it and read after, instrumented by `CliRecorder`; with
+    compare = {"path", "modules"}, the model state that train-v2 starts
+    from (after its warm start or restore) against the file's (loaded
+    before the run, which may overwrite it), bit for bit, over the named
+    top-level modules (all if None). Returns the run's numbers."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch import cli
+    from lss2_multimodal_nu_tpu_torch.train import checkpoint as ck
+
+    want = None
+    if compare:
+        want, _ = ck.model_state(ck.load_file(compare["path"], "cpu"))
+        want = {k: v for k, v in want.items()
+                if compare["modules"] is None or k.split(".")[0] in compare["modules"]}
+    wrappers = port_wrappers()
+    cuda = "cpu" not in argv
+    rec = CliRecorder(cuda)
+    for f in wrappers.values():
+        f.launches = 0
+    buf = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with rec.patches(), contextlib.redirect_stdout(buf):
+        result = cli.main(argv)
+    torch.cuda.synchronize()
+    out = dict(wall=time.perf_counter() - t0, steps=rec.steps, losses=rec.losses,
+               bsize=rec.bsize, evals=rec.evals, memory=rec.memory,
+               marks=[(n, a - t0, b - t0) for n, a, b in rec.marks],
+               launches={n: f.launches for n, f in wrappers.items()}, log=buf.getvalue())
+    if isinstance(result, torch.nn.Module):
+        out["training"] = result.training
+    else:
+        out["info"] = result
+    if want is not None:
+        out["compared"] = len(want)
+        out["differ"] = [k for k, v in want.items() if not torch.equal(rec.snapshot[k], v)]
+    return out
+
+
+def cli_run(label, argv, cwd, kernels, files, compare=None):
+    """11b-11d: one subcommand (`run_cli`) in the working directory `cwd`,
+    its launches kept in CLI_LAUNCHES; prints its numbers and the key lines
+    of its output. Fails if a kernel of `kernels` was not launched, a file
+    of `files` is missing, a loss is not finite, an evaluation syncs with
+    the host more than once (the read of its results), the model is not
+    back in training mode after validation or the compared model state
+    differs. Returns (the run's numbers, failure or None)."""
+    import os
+
+    cwd.mkdir(parents=True, exist_ok=True)
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        out = run_cli(argv, compare)
+    finally:
+        os.chdir(old)
+    wall = out["wall"]
+    launches = CLI_LAUNCHES[label] = out["launches"]
+    written = sorted(str(p.relative_to(cwd)) for p in cwd.rglob("*") if p.is_file())
+    steady = sorted(out["steps"][1:])
+    med = steady[len(steady) // 2] if steady else float("nan")
+    step_txt = (f"{len(out['steps'])} steps, median steady step {med:.1f} ms "
+                f"({out['bsize'] / med * 1e3:.2f} samples/s at B={out['bsize']}), first "
+                f"{out['steps'][0]:.1f} ms" if out["steps"] else "no train step")
+    evals = "; ".join(f"{e['s']:.2f} s over {e['batches']} batches (the profiler "
+                      f"{e['profiler']:.2f} s more), host syncs {json.dumps(e['syncs'])}"
+                      for e in out["evals"])
+    # the wall split: to the first step or evaluation (the loader's probe,
+    # the model, restores, the first batch), the steps, the evaluations, the
+    # rest (batches waited for, checkpoint writes)
+    inside = {k: sum(b - a for n, a, b in out["marks"] if n == k) for k in ("step", "eval")}
+    first = min((a for _, a, _ in out["marks"]), default=wall)
+    memory = "" if out["memory"] is None else (
+        f"; host memory at the first step (resident, not file-shared) {out['memory'][0] / 1e9:.2f}"
+        f" GB this process, {out['memory'][1] / 1e9:.2f} GB its loader's workers")
+    print(f"11 {label}: {wall:.1f} s wall (split: {first:.1f} s to the first step or evaluation, "
+          f"steps {inside['step']:.1f} s, evaluations {inside['eval']:.1f} s, the rest "
+          f"{wall - first - inside['step'] - inside['eval']:.1f} s); {step_txt}; evaluation "
+          f"{evals}; launches {json.dumps(launches)}; files {written}{memory}")
+    for line in out["log"].splitlines():
+        if any(p in line for p in CLI_LOG_PATTERNS):
+            print(f"    | {line}")
+    missing = [f for f in files if not (cwd / f).is_file()]
+    unlaunched = [n for n in kernels if not launches[n]]
+    losses = out["losses"] + [e["loss"] for e in out["evals"]]
+    if missing:
+        return out, f"11 {label}: files not written: {missing}"
+    if unlaunched:
+        return out, f"11 {label}: kernels of its path never launched: {unlaunched}"
+    if not out["evals"] or not all(math.isfinite(x) for x in losses):
+        return out, f"11 {label}: no evaluation, or a loss not finite: {losses}"
+    if kernels and any(e["syncs"]["cudaStreamSynchronize"] + e["syncs"]["cudaMemcpy"] > 1
+                       for e in out["evals"]):
+        return out, f"11 {label}: an evaluation syncs more than once: {evals}"
+    if kernels and not all(e["syncs"]["cudaLaunchKernel"] for e in out["evals"]):
+        return out, f"11 {label}: the profiler recorded no CUDA runtime call"
+    if not out.get("training", True):
+        return out, f"11 {label}: the model is not back in training mode after validation"
+    if out.get("differ"):
+        return out, f"11 {label}: the restored state differs from the file: {out['differ'][:5]}"
+    return out, None
+
+
+def cli_stack_b(data_arg, base):
+    """11b: pretrain-v2, then train-v2 warm-started by its default
+    --pretrained_path (the four components bit for bit), then train-v2
+    --resume --nepochs 2 from its state_latest.pth (bit for bit), in one
+    working directory."""
+    from lss2_multimodal_nu_tpu_torch.models.vovnet_pretrain import PRETRAIN_COMPONENTS
+
+    cwd = base / "stack_b"
+    common = [*data_arg, *CLI_THREADS, "--nepochs", "1", "--eval_every", "1"]
+    _, err = cli_run("pretrain-v2", ["pretrain-v2", *common], cwd, CLI_STACK_B,
+                     ["pretrain_vovnet/best_pretrained.pth", "pretrain_vovnet/state_latest.pth",
+                      "pretrain_vovnet/result.txt"])
+    if err:
+        return err
+    out_dir = "checkpoints_vovnet_transformer"
+    out, err = cli_run("train-v2", ["train-v2", *common], cwd, CLI_STACK_B,
+                       [f"{out_dir}/best_model_V3.pth", f"{out_dir}/state_latest.pth",
+                        f"{out_dir}/result.txt"],
+                       compare=dict(path=str(cwd / "pretrain_vovnet/best_pretrained.pth"),
+                                    modules=list(PRETRAIN_COMPONENTS)))
+    if err:
+        return err
+    warm = "Loading pre-trained weights from: ./pretrain_vovnet/best_pretrained.pth" in out["log"]
+    print(f"11b the default warm start printed: {warm}; the four components' {out['compared']} "
+          f"tensors bit for bit equal to best_pretrained.pth: {not out['differ']}")
+    if not warm:
+        return "11b train-v2 did not warm-start from its default --pretrained_path"
+    out, err = cli_run("train-v2 --resume --nepochs 2",
+                       ["train-v2", *data_arg, *CLI_THREADS, "--nepochs", "2", "--eval_every", "1",
+                        "--resume"],
+                       cwd, CLI_STACK_B, [f"{out_dir}/state_latest.pth"],
+                       compare=dict(path=str(cwd / out_dir / "state_latest.pth"), modules=None))
+    if err:
+        return err
+    resumed = f"resuming from ./{out_dir}/state_latest.pth" in out["log"]
+    warm = "Loading pre-trained" in out["log"]
+    print(f"11b resume printed: {resumed}; the restored model's {out['compared']} tensors bit for "
+          f"bit equal to state_latest.pth: {not out['differ']}; the warm start skipped: {not warm}")
+    if not resumed or warm:
+        return "11b train-v2 --resume did not restore state_latest.pth alone"
+    return None
+
+
+def cli_stack_a(data_arg, base):
+    """11c: pretrain (LSS b4), train (BevTxt b4) and train-onlybev, each in
+    a working directory of its own, then predict (B=1) on train's model0.pt
+    and predict-iou on pretrain's."""
+    common = [*data_arg, "--nepochs", "1"]
+    runs = (("pretrain", "pretrain_result", "pretrain-result.txt"),
+            ("train", "result-log", "result.txt"),
+            ("train-onlybev", "result-log", "result.txt"))
+    for cmd, logdir, results in runs:
+        workers = [] if cmd == "train" else CLI_THREADS
+        _, err = cli_run(cmd, [cmd, *common, *workers], base / cmd, CLI_STACK_A,
+                         [f"{logdir}/model0.pt", f"{logdir}/state_latest.pth",
+                          f"{logdir}/{results}"])
+        if err:
+            return err
+    _, err = cli_run("predict", ["predict", *common, "--checkpoint", "result-log/model0.pt"],
+                     base / "train", CLI_PREDICT, ["test.txt"])
+    if err:
+        return err
+    _, err = cli_run("predict-iou", ["predict-iou", *common, "--checkpoint",
+                                     "pretrain_result/model0.pt"], base / "pretrain",
+                     CLI_PREDICT, ["b1_20.txt"])
+    return err
+
+
+def _number_lines(path):
+    """(text with numbers as '#', [numbers], whether F1 scores) per line."""
+    import re
+
+    num = re.compile(r"-?\d+(?:\.\d+)?(?:e-?\d+)?")
+    return [(num.sub("#", line), [float(x) for x in num.findall(line)],
+             "F1" in line or "overall" in line or "_mean" in line)
+            for line in path.read_text().splitlines()]
+
+
+def cli_card_vs_cpu(dev, data_arg, base):
+    """11d: train's model0.pt with its batch norms calibrated to the first
+    test batch (raw, a random init trained 8 steps gives logits far from
+    order 1, where float32 round-off flips argmaxes), `predict` on the card
+    and `predict --device cpu` on that file and the same data: the
+    confusion matrices, IoUs, loss, F1 scores and test.txt within the CPU
+    tests' limits."""
+    import numpy as np
+
+    from lss2_multimodal_nu_tpu_torch import cli
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+    from lss2_multimodal_nu_tpu_torch.train import checkpoint as ck
+    from lss2_multimodal_nu_tpu_torch.train.steps import MODEL_INPUTS
+
+    cwd = base / "train"
+    args = cli.build_parser().parse_args(["predict", *data_arg])
+    cfg = cli._build_cfg(args, "bev_txt")
+    model = build_model(cfg, dev, seed=0)
+    ck.restore_loose(str(cwd / "result-log/model0.pt"), model, map_location=dev)
+    batch = next(iter(cli._loaders(cfg, True, "nu_a2d", test=True, nworkers=4, device=dev)))
+    calibrate(model, [batch[k] for k in MODEL_INPUTS])
+    ck.save_params(str(cwd / "calibrated.pt"), model)
+    del model, batch
+    infos = {}
+    for device in ("cuda", "cpu"):
+        out, err = cli_run(f"predict --device {device} (calibrated)",
+                           ["predict", *data_arg, "--nepochs", "1", "--device", device,
+                            "--checkpoint", "calibrated.pt", "--out_file", f"{device}.txt"], cwd,
+                           CLI_PREDICT if device == "cuda" else (), [f"{device}.txt"])
+        if err:
+            return err
+        infos[device] = out["info"]
+    got, want = infos["cuda"], infos["cpu"]
+    pixels = int(want["confmat"].sum())
+    moved = int(np.abs(got["confmat"] - want["confmat"]).sum()) // 2
+    iou = float(np.nanmax(np.abs(got["iou"] - want["iou"])))
+    loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    f1 = all(got[k] == want[k] for k in ("act_f1", "desc_f1", "act_overall", "desc_overall",
+                                         "act_mean", "desc_mean"))
+    lines_ok = True
+    for (ta, na, fa), (tb, nb, _) in zip(_number_lines(cwd / "cuda.txt"),
+                                         _number_lines(cwd / "cpu.txt")):
+        tol = 0.0 if fa else 0.2  # one-decimal percentages: two roundings of 1e-3
+        lines_ok &= ta == tb and all(abs(x - y) <= tol + 1e-12 for x, y in zip(na, nb))
+    print(f"11d predict card vs CPU on {pixels} pixels: {moved} moved between cells "
+          f"(limit {CLI_PIXELS_TOL * pixels:.0f}), max IoU diff {iou:.2e} (limit {CLI_IOU_TOL}), "
+          f"loss {got['loss']:.6f} vs {want['loss']:.6f}, rel diff {loss:.2e} (limit "
+          f"{CLI_LOSS_RTOL}); F1 scores equal {f1}; test.txt lines agree {lines_ok}; mIoU "
+          f"{got['mean_iou']:.4f} vs {want['mean_iou']:.4f}")
+    if not (moved <= CLI_PIXELS_TOL * pixels and iou <= CLI_IOU_TOL and loss <= CLI_LOSS_RTOL
+            and f1 and lines_ok):
+        return "11d predict on the card disagrees with predict on the CPU"
+    return None
+
+
+def cli_phase(dev, data_root):
+    """Phase 11: the CLI on the card, subcommand by subcommand, from the
+    phase-10 fixture (`--version mini`). Returns a failure or None."""
+    import shutil
+
+    base = ROOT / "build" / "cli11"
+    shutil.rmtree(base, ignore_errors=True)
+    data_arg = ["--version", "mini", "--dataroot", str(data_root.parent)]
+    t0 = time.perf_counter()
+    try:
+        err = cli_stack_b(data_arg, base)
+        if not err:
+            err = cli_stack_a(data_arg, base)
+        if not err:
+            err = cli_card_vs_cpu(dev, data_arg, base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    print(f"phase 11 (the CLI): {time.perf_counter() - t0:.1f} s")
+    return err
+
+
 def precision_flags():
     """torch's process-wide float32 precision flags, as a short string."""
     import torch
@@ -2091,10 +2537,6 @@ def main() -> int:
     from lss2_multimodal_nu_tpu_torch.config import Config, ModelConfig
     from lss2_multimodal_nu_tpu_torch.models.factory import build_model
     from lss2_multimodal_nu_tpu_torch.ops import _build
-    from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
-    from lss2_multimodal_nu_tpu_torch.ops import ffn, img_aug, jpeg_idct
-    from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
-    from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
     from lss2_multimodal_nu_tpu_torch.ops._precision import full_float32
     from lss2_multimodal_nu_tpu_torch.train.steps import train_step, train_without_dropout
 
@@ -2134,12 +2576,7 @@ def main() -> int:
         return _fail(err)
 
     # ---- 3. the flagship eval forward at full width, B=6, bfloat16; 3b. float32
-    wrappers = {"deformable_sample": ds.deformable_sample_combine_xy,
-                "deformable_sample_backward": ds.deformable_sample_combine_xy_backward,
-                "lift_splat": ls.fused_lift_splat,
-                "lift_splat_backward": ls.fused_lift_splat_backward,
-                "ffn_ln": ffn.fused_ffn_ln, "seg_head": sh.fused_seg_head,
-                "jpeg_idct": jpeg_idct.decode, "img_aug": img_aug.augment}
+    wrappers = port_wrappers()
     by_dtype = {}
     for dtype, phase in (("bfloat16", "3"), ("float32", "3b")):
         by_dtype[dtype], err, numbers = eval_forward(dev, dtype, phase, wrappers)
@@ -2322,8 +2759,9 @@ def main() -> int:
     # bit, the loader alone, train-v2's flagship fed by it
     import shutil
 
-    data_root = ROOT / "build" / "data10"
-    shutil.rmtree(data_root, ignore_errors=True)
+    # the fixture as the CLI's `--dataroot build/data10 --version mini` reads it
+    data_root = ROOT / "build" / "data10" / "mini"
+    shutil.rmtree(data_root.parent, ignore_errors=True)
     try:
         data_fixture(data_root)
         data_rows, err = data_pieces(dev, data_root)
@@ -2333,8 +2771,14 @@ def main() -> int:
         data_launches, err = data_train(dev, data_root, wrappers)
         if err:
             return _fail(err)
+        torch.cuda.empty_cache()
+
+        # ---- 11. the CLI: each subcommand through `cli.main` from the fixture
+        err = cli_phase(dev, data_root)
+        if err:
+            return _fail(err)
     finally:
-        shutil.rmtree(data_root, ignore_errors=True)
+        shutil.rmtree(data_root.parent, ignore_errors=True)
 
     kernels = []
     backward_outputs = {"deformable_sample_backward": ("dv", "dlx", "dly", "dattn"),
@@ -2344,6 +2788,7 @@ def main() -> int:
             kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                                 launches=data_launches[name],
                                 launches_loader_fed_train_steps=data_launches[name],
+                                launches_cli={run: n[name] for run, n in CLI_LAUNCHES.items()},
                                 loader_fed_train_steps=LOADER_STEPS,
                                 dtype="uint8 -> float32", batch=TRAIN_B, **data_rows[name]))
             continue
@@ -2359,6 +2804,7 @@ def main() -> int:
             launches_pretrain_train_step=chain_launches[name],
             launches_pretrain_eval_step=pretrain_eval_launches[name],
             launches_flagship_f32_train_step=flagship_f32_launches[name],
+            launches_cli={run: n[name] for run, n in CLI_LAUNCHES.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             composite_ms=row.get("composite_ms"),
@@ -2377,6 +2823,9 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces, launches=n_launch,
             launches_eval_forward=stack_a_launches[name[:-4]],
             launches_train_step=stack_a_train_launches[name[:-4]], dtype="float32",
+            launches_cli={run: n[name[:-4]] for run, n in CLI_LAUNCHES.items()
+                          if run.split()[0] in ("pretrain", "train", "train-onlybev", "predict",
+                                                "predict-iou")},
             batch=STACK_A_B, max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], composite_ms=row.get("composite_ms"),

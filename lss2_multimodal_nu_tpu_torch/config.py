@@ -1,9 +1,10 @@
 """Configuration of the PyTorch port (mirrors `lss2_multimodal_nu_tpu/config.py`).
 
-Same defaults as the JAX package's `GridConfig`, `AugConfig`, `ModelConfig`
-and `TrainConfig`; the TPU-only knobs (`dropout_rng_impl`, `MeshConfig`) are
-left out. Two fields are new to the port: `compute_dtype` names a torch dtype, and
-`ln_eps` is the eps of every LayerNorm of the model.
+Same defaults as the JAX package's `GridConfig`, `AugConfig`, `ModelConfig`,
+`TrainConfig`, `Config` and `preset`; the TPU-only knob `dropout_rng_impl` is
+left out, and `MeshConfig` waits for distributed runs. `ModelConfig` adds
+`ln_eps`, the eps of every LayerNorm of the model, and `torch_dtype`, the
+torch dtype that `compute_dtype` names.
 """
 from __future__ import annotations
 
@@ -98,8 +99,7 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimization settings (the JAX package's `TrainConfig`, without the
-    TPU-only `dropout_rng_impl` and the logging knobs `log_every` and
-    `watch_gradients`)."""
+    TPU-only `dropout_rng_impl`)."""
 
     batch_size: int = 6
     lr: float = 1e-4
@@ -112,6 +112,10 @@ class TrainConfig:
     min_lr: float = 1e-6
     use_schedule: bool = False
     seed: int = 42
+    log_every: int = 200
+    # per-top-module gradient norms and a strided sample of the gradients
+    # in the train step's metrics (`train/steps.py::grad_watch_summaries`)
+    watch_gradients: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +124,42 @@ class Config:
     aug: AugConfig = AugConfig()
     model: ModelConfig = ModelConfig()
     train: TrainConfig = TrainConfig()
+    dataroot: str = "/data/nu-A2D"
+    version: str = "trainval"  # 'trainval' | 'mini'
+    logdir: str = "./result-log"
+
+
+def preset(name: str) -> Config:
+    """The configuration of one of the original repo's five entry points:
+    'pretrain', 'train', 'train_onlybev', 'pretrain_v2', 'train_v2'."""
+    if name == "pretrain":
+        return Config(
+            model=ModelConfig(family="lss"),
+            train=TrainConfig(batch_size=6, lr=1e-3, weight_decay=1e-7),
+            aug=AugConfig(rand_flip=True),
+        )
+    if name == "train":
+        return Config(
+            model=ModelConfig(family="bev_txt"),
+            train=TrainConfig(batch_size=6, lr=1e-4, weight_decay=1e-8),
+        )
+    if name == "train_onlybev":
+        return Config(
+            model=ModelConfig(family="bev_txt_onlybev"),
+            train=TrainConfig(batch_size=6, lr=1e-4, weight_decay=1e-8),
+        )
+    if name == "pretrain_v2":
+        return Config(
+            model=ModelConfig(family="vovnet_pretrain", lss_version="v2"),
+            train=TrainConfig(batch_size=12, lr=1e-4, weight_decay=1e-8, num_epochs=60,
+                              use_schedule=True),
+            aug=AugConfig(rand_flip=True),
+        )
+    if name == "train_v2":
+        return Config(
+            model=ModelConfig(family="vovnet_transformer", lss_version="v1"),
+            train=TrainConfig(batch_size=8, lr=1e-4, weight_decay=1e-8, max_grad_norm=10.0,
+                              num_epochs=60, use_schedule=True),
+            aug=AugConfig(rand_flip=True),
+        )
+    raise ValueError(f"unknown preset: {name}")

@@ -273,3 +273,17 @@ def device_stage(host: dict, device) -> Dict[str, torch.Tensor]:
     out = {"imgs": imgs.view(b, n, *imgs.shape[1:])}
     out.update({k: t[k] for k in LABELS if k in t})
     return out
+
+
+class VizDataset(NuA2DDataset):
+    """The dataset for visualisation: each item also holds 'lidar', (3, M)
+    float32 x, y, z of up to 3 lidar sweeps in the ego frame (points within
+    2.2 m of the sensor dropped), on the dataset's device."""
+
+    def __getitem__(self, index: int) -> Dict[str, torch.Tensor]:
+        from .lidar import get_lidar_data
+
+        out = super().__getitem__(index)
+        pts = get_lidar_data(self.nusc, self.ixes[index], nsweeps=3, min_distance=2.2)
+        out["lidar"] = torch.from_numpy(pts[:3].astype(np.float32)).to(self.device)
+        return out

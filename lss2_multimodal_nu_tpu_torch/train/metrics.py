@@ -11,12 +11,16 @@ import torch
 def confusion_matrix_update(mat: torch.Tensor, labels: torch.Tensor, preds: torch.Tensor,
                             num_classes: int) -> torch.Tensor:
     """`mat` plus the (n, n) int counts of (label, prediction) pairs; labels
-    outside [0, n) are not counted."""
+    outside [0, n) are not counted. No host sync: they are counted in an
+    extra bin, where a mask's selection (or `bincount`) would make the
+    host wait for the card to learn a size."""
     labels = labels.reshape(-1).long()
     preds = preds.reshape(-1).long()
     k = (labels >= 0) & (labels < num_classes)
-    counts = torch.bincount(num_classes * labels[k] + preds[k], minlength=num_classes ** 2)
-    return mat + counts.reshape(num_classes, num_classes).to(mat.dtype)
+    idx = torch.where(k, num_classes * labels + preds, num_classes * num_classes)
+    counts = torch.zeros(num_classes ** 2 + 1, dtype=mat.dtype, device=mat.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=mat.dtype))
+    return mat + counts[:-1].reshape(num_classes, num_classes)
 
 
 def confusion_matrix_compute(mat: np.ndarray) -> Dict[str, np.ndarray]:

@@ -17,7 +17,7 @@ outside the model's forward.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,7 +80,8 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                ) -> Dict[str, torch.Tensor]:
     """One step; returns {loss, the family's loss components, grad_norm}
     (the flagship's components are bev, action and desc), where grad_norm
-    is the global norm before clipping. `mark`, if given, is
+    is the global norm before clipping, and with `cfg.train.watch_gradients`
+    the `grad_watch_summaries` of the gradients. `mark`, if given, is
     called with "forward", "backward" and "optimizer" as each part ends (a
     timer records a CUDA event there)."""
     if not model.training:
@@ -96,11 +97,45 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         mark("backward")
+    watch = grad_watch_summaries(_grads_by_module(model)) if cfg.train.watch_gradients else {}
     grad_norm = torch.nn.utils.clip_grad_norm_(model.parameters(), cfg.train.max_grad_norm)
     optimizer.step()
     scheduler.step()
     mark("optimizer")
-    return {**{k: v.detach() for k, v in metrics.items()}, "grad_norm": grad_norm}
+    return {**{k: v.detach() for k, v in metrics.items()}, "grad_norm": grad_norm, **watch}
+
+
+def _grads_by_module(model: torch.nn.Module) -> Dict[str, list]:
+    """{top-level module: its parameters' gradients, in registration
+    order}; parameters without a gradient are left out."""
+    out: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            out.setdefault(name.split(".")[0], []).append(p.grad)
+    return out
+
+
+@torch.no_grad()
+def grad_watch_summaries(grads: Dict[str, Sequence[torch.Tensor]],
+                         sample_per_module: int = 2048) -> Dict[str, torch.Tensor]:
+    """wandb.watch's view of the gradients, on their device: for each
+    top-level module, `grad_norm/<module>`, the global norm of its
+    gradients, and `grad_sample/<module>`, a strided sample of at most
+    `sample_per_module` float32 values for a histogram, the same number
+    from each leaf (every stride-th value), as the JAX package's
+    `train/steps.py::grad_watch_summaries` takes it. Nothing is concatenated
+    but the samples."""
+    out: Dict[str, torch.Tensor] = {}
+    for mod, leaves in grads.items():
+        out[f"grad_norm/{mod}"] = torch.sqrt(sum(x.float().square().sum() for x in leaves))
+        per_leaf = max(sample_per_module // len(leaves), 1)
+        samples = []
+        for x in leaves:
+            flat = x.reshape(-1)
+            stride = max(flat.numel() // per_leaf, 1)
+            samples.append(flat[::stride][:per_leaf].float())
+        out[f"grad_sample/{mod}"] = torch.cat(samples)[:sample_per_module]
+    return out
 
 
 @full_float32()

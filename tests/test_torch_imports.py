@@ -2,8 +2,10 @@
 not `chip_smoke.py`, imports JAX, flax, Orbax or the JAX package, nor the
 image libraries the JAX package's data pipeline uses (PIL, OpenCV,
 torchvision), so that the port runs where none is installed; the port
-imports with all of those made unimportable; and `chip_smoke.py` refuses to run without a CUDA
-card or outside a checkout."""
+imports with all of those, and matplotlib and wandb (which the card's
+machine lacks; only the figures and the wandb logger import them, inside
+the functions that use them), made unimportable; and `chip_smoke.py`
+refuses to run without a CUDA card or outside a checkout."""
 import ast
 import shutil
 import subprocess
@@ -16,6 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "lss2_multimodal_nu_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "lss2_multimodal_nu_tpu"}
 IMAGE_LIBRARIES = {"PIL", "cv2", "torchvision"}
+# imported only inside the functions that need them
+OPTIONAL = {"matplotlib", "wandb"}
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -55,22 +59,23 @@ def test_no_image_library_imports(path):
 
 
 def test_port_imports_without_image_libraries():
-    """Every module, the data pipeline's included, with PIL, OpenCV and
-    torchvision made unimportable as well as JAX."""
-    code = _BLOCKED_IMPORT.format(blocked=FORBIDDEN | IMAGE_LIBRARIES)
+    """Every module, the data pipeline's and the CLI's included, with PIL,
+    OpenCV, torchvision, matplotlib and wandb made unimportable as well as
+    JAX."""
+    code = _BLOCKED_IMPORT.format(blocked=FORBIDDEN | IMAGE_LIBRARIES | OPTIONAL)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 46
+    assert int(r.stdout.split()[-1]) >= 54
 
 
 def test_port_imports_without_jax():
-    code = _BLOCKED_IMPORT.format(blocked=FORBIDDEN)
+    code = _BLOCKED_IMPORT.format(blocked=FORBIDDEN | OPTIONAL)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr
-    # every module of the port, the pretrain model and the checkpoints included
-    assert int(r.stdout.split()[-1]) >= 36
+    # every module of the port, the CLI and its utilities included
+    assert int(r.stdout.split()[-1]) >= 54
 
 
 def _run_chip_smoke(script: Path):

@@ -74,13 +74,12 @@ def _recording_flax_dropout(calls):
 
 
 def test_train_config_defaults_match_jax():
-    """Same fields and defaults, minus the TPU-only and logging knobs."""
+    """Same fields and defaults, minus the TPU-only knob."""
     jd = {f.name: getattr(jconfig.TrainConfig(), f.name)
           for f in dataclasses.fields(jconfig.TrainConfig)}
     td = {f.name: getattr(tconfig.TrainConfig(), f.name)
           for f in dataclasses.fields(tconfig.TrainConfig)}
-    for k in ("dropout_rng_impl", "watch_gradients", "log_every"):
-        jd.pop(k)
+    jd.pop("dropout_rng_impl")
     assert jd == td
     assert tconfig.Config().train == tconfig.TrainConfig()
 
