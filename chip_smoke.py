@@ -111,7 +111,21 @@ Phases (any failure exits non-zero):
      expected kernel at least once), the files it wrote, finite losses;
      11d. predict on the card against `predict --device cpu` on train's
      `model0.pt` with its batch norms calibrated, within the CPU tests'
-     limits (`tests/test_torch_cli.py`).
+     limits (`tests/test_torch_cli.py`);
+ 12. the distributed path (`parallel/`) on one card: train-v2's flagship
+     (float32, LSS v1, B=8, dropout off, constant rate) as one process,
+     again (the control), then in an NCCL group of one rank, where the
+     loss normalisers', metrics' and replicated gradients' all-reduces run
+     as collectives of one, replicated and FSDP2 from the same weights: the
+     loss bit for bit, the gradients within PIN_GRAD_TOL beside the
+     control's spread, kernels 1, 2, 3 and 3b launched, no host sync in a
+     step, the step's median beside the one process's; 12a. the global
+     batch norm (`_GlobalBatchNorm`, which the step takes only at world >
+     1) called in the group at each of the step's batch-norm shapes:
+     output, gradients and running statistics within BN_TOL of float64,
+     torch's float32 batch norm beside; then `cli._evaluate` under FSDP2
+     through the group's all-gathers against the one process's: equal,
+     kernels 1, 3, 4 and 5 launched, one host read (`dist_phase`).
 
 Phases 2, 2b and 2c run kernels, plain versions and yardsticks in full
 float32 (`ops/_precision.py::full_float32`); phases 3 to 8 run under
@@ -2515,6 +2529,262 @@ def cli_phase(dev, data_root):
     return err
 
 
+# phase 12: the distributed path at world 1 (one card, an NCCL group of one)
+DIST_B = 8
+DIST_LR = 1e-4
+DIST_EVAL_BATCHES = 2
+DIST_TRAIN = ("deformable_sample", "deformable_sample_backward", "lift_splat",
+              "lift_splat_backward")
+DIST_EVAL = ("deformable_sample", "lift_splat", "ffn_ln", "seg_head")
+
+
+def _full_grads(model):
+    """{leaf: its gradient in full (a sharded one gathered), float32}."""
+    out = {}
+    for n, p in model.named_parameters():
+        if p.grad is not None:
+            g = p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad
+            out[n] = g.detach().float().clone()
+    return out
+
+
+def _full_weights(model):
+    return {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().clone()
+            for n, p in model.named_parameters()}
+
+
+def _grad_spread(got, want):
+    """The worst norm of difference / norm over the leaves whose gradient
+    is not zero in exact arithmetic (more than 1e-4 of the largest max)."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return max((float((got[n] - g).norm() / g.norm()) for n, g in want.items()
+                if float(g.abs().max()) > 1e-4 * top), default=0.0)
+
+
+BN_TOL = 1e-5  # _GlobalBatchNorm against float64, norm of difference / norm
+
+
+def bn_check(dev, shapes):
+    """12a: `nn/layers.py::global_batch_norm` (`_GlobalBatchNorm`, called
+    directly: its all-gather and all-reduce run in the group of one) against
+    torch's training batch norm on the same inputs, both held to float64,
+    at each of `shapes` (the flagship step's batch norms): the output, the
+    input's, weight's and bias's gradients, the running mean and variance.
+    Returns (worst norm of difference / norm of the global one, of torch's
+    float32), each {quantity: worst over the shapes}."""
+    import torch
+    import torch.nn.functional as F
+
+    from lss2_multimodal_nu_tpu_torch.nn.layers import global_batch_norm
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    worst = {"global": {}, "torch": {}}
+    for shape in shapes:
+        c = shape[1]
+        x = torch.randn(shape, device=dev, generator=gen) * 4.0 + 2.0
+        dy = torch.randn(shape, device=dev, generator=gen)
+        w0 = torch.rand(c, device=dev, generator=gen) + 0.5
+        b0 = torch.randn(c, device=dev, generator=gen)
+        got = {}
+        for label, dtype in (("global", torch.float32), ("torch", torch.float32),
+                             ("f64", torch.float64)):
+            bn = torch.nn.BatchNorm2d(c, device=dev, dtype=dtype)
+            with torch.no_grad():
+                bn.weight.copy_(w0)
+                bn.bias.copy_(b0)
+            xi = x.to(dtype, copy=True).requires_grad_()
+            if label == "global":
+                y = global_batch_norm(xi, bn)
+            else:
+                y = F.batch_norm(xi, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                 training=True, momentum=bn.momentum, eps=bn.eps)
+            y.backward(dy.to(dtype))
+            got[label] = dict(y=y.detach(), dx=xi.grad, dweight=bn.weight.grad,
+                              dbias=bn.bias.grad, running_mean=bn.running_mean,
+                              running_var=bn.running_var)
+        for label in ("global", "torch"):
+            for k, ref in got["f64"].items():
+                d = float((got[label][k].double() - ref).norm() / ref.norm())
+                worst[label][k] = max(worst[label].get(k, 0.0), d)
+        del x, dy, got
+    return worst["global"], worst["torch"]
+
+
+def dist_phase(dev, wrappers):
+    """Phase 12: runs on more than one device, through the code that runs
+    them, on one card. Train-v2's flagship (vovnet39, LSS v1, V3, float32,
+    B=8, clip 10, two groups; a constant rate of 1e-4, so that the first
+    Adam step moves the weights) with dropout off, from the same weights.
+    First as one process, before any group exists: the step (its batch
+    norms' input shapes recorded), the same step again (the control: the
+    deformable backward's dv atomics add in varying order, ROADMAP fault
+    2), and `cli._evaluate` over two batches of 8. Then in an NCCL group of
+    one rank joined by `parallel/multihost.py` (a file store under build/),
+    where the loss normalisers' and the metrics' all-reduces, the
+    replicated model's bucketed gradient all-reduce and the evaluation's
+    all-gathers run as collectives of one rank: the step replicated
+    (`shard_state(..., "replicate")`) and under FSDP2 (`shard_state(...,
+    "fsdp")`). Each: the loss bit for bit, the gradients within
+    PIN_GRAD_TOL (worst leaf, norm of difference / norm) with the control's
+    spread beside, the weights after the step beside the control's;
+    launches of kernels 1, 2, 3 and 3b (counts set to 0 before its first
+    step); no cudaStreamSynchronize or cudaMemcpy in a step; the step's
+    median ms of 5 beside the one process's. 12a: the global batch norm,
+    which the step takes only at world > 1, called directly at every one of
+    the recorded shapes (`bn_check`, within BN_TOL of float64). Then the
+    evaluation under FSDP2 in the group: launches of kernels 1, 3, 4 and 5,
+    one host read, results equal to the one process's. Returns ({"train",
+    "fsdp_train", "eval": launches}, failure or None)."""
+    import shutil
+    import unittest.mock as mock
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lss2_multimodal_nu_tpu_torch import cli
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+    from lss2_multimodal_nu_tpu_torch.parallel import multihost
+    from lss2_multimodal_nu_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from lss2_multimodal_nu_tpu_torch.train.state import build_optimizer
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_step, train_without_dropout
+
+    t0 = time.perf_counter()
+    cfg = chain_config("vovnet_transformer", batch_size=DIST_B, lr=DIST_LR,
+                       weight_decay=1e-8, max_grad_norm=10.0, num_epochs=60)
+    base = build_model(cfg, device=dev, seed=12)
+    perturb(base, seed=13)
+    init = base.state_dict()
+    batch = train_batch(dev, DIST_B, seed=14)
+    loader = [train_batch(dev, DIST_B, seed=20 + i) for i in range(DIST_EVAL_BATCHES)]
+    runs, launches, times, syncs, bn_shapes = {}, {}, {}, {}, set()
+    infos, eval_syncs = {}, {}
+    batch_norm = F.batch_norm
+
+    def recording_batch_norm(x, *a, training=False, **k):
+        if training:
+            bn_shapes.add(tuple(x.shape))
+        return batch_norm(x, *a, training=training, **k)
+
+    def train(label, wrapper=None, mesh=None):
+        model = build_model(cfg, device=dev, seed=12)
+        model.load_state_dict(init)
+        train_without_dropout(model)
+        if wrapper:
+            shard_state(model, mesh, wrapper=wrapper)
+        opt, sched = build_optimizer(cfg, model, steps_per_epoch=STEPS_PER_EPOCH)
+        torch.cuda.synchronize()
+        for f in wrappers.values():
+            f.launches = 0
+        with mock.patch.object(F, "batch_norm", recording_batch_norm):
+            m = train_step(model, opt, sched, batch, 0)
+        torch.cuda.synchronize()
+        launches[label] = {n: wrappers[n].launches for n in KERNELS}
+        runs[label] = (m["loss"].clone(), _full_grads(model), _full_weights(model))
+        if label != "control":
+            syncs[label] = count_syncs(lambda: train_step(model, opt, sched, batch, 1))
+            ts = []
+            for i in range(2, 9):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                train_step(model, opt, sched, batch, i)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t1) * 1e3)
+            times[label] = sorted(ts[2:])[len(ts[2:]) // 2]
+        del model, opt, sched
+        torch.cuda.empty_cache()
+
+    def evaluate(label, wrapper=None, mesh=None):
+        model = build_model(cfg, device=dev, seed=12)
+        model.load_state_dict(init)
+        if wrapper:
+            shard_state(model, mesh, wrapper=wrapper)
+        cli._evaluate(cfg, model, loader[:1])  # first calls
+        torch.cuda.synchronize()
+        for f in wrappers.values():
+            f.launches = 0
+        out = []
+        eval_syncs[label] = count_syncs(lambda: out.append(cli._evaluate(cfg, model, loader)))
+        infos[label] = out[0]
+        launches[f"eval {label}"] = {n: wrappers[n].launches for n in KERNELS}
+        del model
+
+    # one process, no group
+    train("unwrapped")
+    train("control")
+    evaluate("unwrapped")
+    store = ROOT / "build" / "dist12"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    rank, world = multihost.initialize("cuda", init_method=f"file://{store / 'store'}", rank=0,
+                                       world_size=1, join_alone=True)
+    print(f"12 joined {torch.distributed.get_backend()} as rank {rank} of {world} on "
+          f"{torch.cuda.current_device()}")
+    try:
+        mesh = make_mesh(cfg, "cuda")
+        train("replicated", "replicate", mesh)
+        train("fsdp", "fsdp", mesh)
+        loss0, grads0, weights0 = runs["unwrapped"]
+        ctl_grad = _grad_spread(runs["control"][1], grads0)
+        ctl_w = max(float((runs["control"][2][n] - w).abs().max()) for n, w in weights0.items())
+        print(f"12 one process f32 B={DIST_B} step: loss {float(loss0):.9g}, median "
+              f"{times['unwrapped']:.3f} ms; control (the same step again): loss bit for bit "
+              f"{bool(torch.equal(runs['control'][0], loss0))}, gradients' worst norm of "
+              f"difference / norm {ctl_grad:.3e}, weights' max abs diff {ctl_w:.3e}")
+        for label in ("replicated", "fsdp"):
+            loss, grads, weights = runs[label]
+            same_loss = bool(torch.equal(loss, loss0))
+            spread = _grad_spread(grads, grads0)
+            wdiff = max(float((weights[n] - w).abs().max()) for n, w in weights0.items())
+            got = {n: launches[label][n] for n in DIST_TRAIN}
+            print(f"12 {label} step: loss {float(loss):.9g} bit for bit {same_loss}; gradients' "
+                  f"worst norm of difference / norm {spread:.3e} (tol {PIN_GRAD_TOL}; control "
+                  f"{ctl_grad:.3e}); weights' max abs diff {wdiff:.3e} (control {ctl_w:.3e}); "
+                  f"launches {json.dumps(got)}; host syncs in a step {json.dumps(syncs[label])}; "
+                  f"median {times[label]:.3f} ms of 5 against {times['unwrapped']:.3f} one process "
+                  f"({times[label] - times['unwrapped']:+.3f} ms)")
+            if not same_loss:
+                return launches, f"12: the {label} step's loss differs from the one process's"
+            if not spread <= PIN_GRAD_TOL:
+                return launches, f"12: the {label} step's gradients differ: {spread:.3e}"
+            if not all(got.values()):
+                return launches, f"12: the {label} step launched no {[n for n, c in got.items() if not c]}"
+            if syncs[label]["cudaStreamSynchronize"] or syncs[label]["cudaMemcpy"]:
+                return launches, f"12: the {label} step makes host syncs: {syncs[label]}"
+        # 12a: the global batch norm at the step's shapes, in the group
+        shapes = sorted(bn_shapes)
+        t1 = time.perf_counter()
+        bn_global, bn_torch = bn_check(dev, shapes)
+        print(f"12a global batch norm at the step's {len(shapes)} batch-norm shapes "
+              f"({shapes[0]} to {shapes[-1]}), worst norm of difference / norm against float64 "
+              f"(tol {BN_TOL}): {json.dumps(bn_global)}; torch's float32 batch norm "
+              f"{json.dumps(bn_torch)}; {time.perf_counter() - t1:.1f} s")
+        if not max(bn_global.values()) <= BN_TOL:
+            return launches, f"12a: the global batch norm differs from float64's: {bn_global}"
+        # the evaluation under FSDP2 in the group against the one process's
+        evaluate("fsdp", "fsdp", mesh)
+        same = {k: bool(np.array_equal(np.asarray(infos["fsdp"][k]),
+                                       np.asarray(infos["unwrapped"][k])))
+                for k in ("loss", "confmat", "iou", "act_f1", "desc_f1")}
+        got = {n: launches["eval fsdp"][n] for n in DIST_EVAL}
+        reads = eval_syncs["fsdp"]["cudaStreamSynchronize"] + eval_syncs["fsdp"]["cudaMemcpy"]
+        print(f"12 evaluation over {DIST_EVAL_BATCHES} batches of {DIST_B}, FSDP2 in the group "
+              f"against one process: equal {json.dumps(same)}; mean IoU "
+              f"{infos['fsdp']['mean_iou']:.6f}; launches {json.dumps(got)}; host syncs "
+              f"{json.dumps(eval_syncs['fsdp'])} (one process {json.dumps(eval_syncs['unwrapped'])})")
+        if not all(same.values()):
+            return launches, f"12: the FSDP2 evaluation differs from the one process's: {same}"
+        if not all(got.values()):
+            return launches, f"12: the evaluation launched no {[n for n, c in got.items() if not c]}"
+        if reads > 1 or not eval_syncs["fsdp"]["cudaLaunchKernel"]:
+            return launches, f"12: the evaluation reads the host {reads} times"
+        print(f"phase 12 (the distributed path at world 1): {time.perf_counter() - t0:.1f} s")
+        return launches, None
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def precision_flags():
     """torch's process-wide float32 precision flags, as a short string."""
     import torch
@@ -2780,7 +3050,18 @@ def main() -> int:
     finally:
         shutil.rmtree(data_root.parent, ignore_errors=True)
 
+    # ---- 12. the distributed path in an NCCL group of one: both wrappers
+    # against the unwrapped step, the evaluation through the group
+    torch.cuda.empty_cache()
+    dist_launches, err = dist_phase(dev, wrappers)
+    if err:
+        return _fail(err)
+
     kernels = []
+    dist_keys = lambda name: dict(
+        launches_dist_train_step=dist_launches["replicated"][name],
+        launches_dist_fsdp_train_step=dist_launches["fsdp"][name],
+        launches_dist_eval=dist_launches["eval fsdp"][name])
     backward_outputs = {"deformable_sample_backward": ("dv", "dlx", "dly", "dattn"),
                         "lift_splat_backward": ("dfeat", "ddepth")}
     for name, (src, replaces, n_eval, _) in KERNELS.items():
@@ -2789,7 +3070,7 @@ def main() -> int:
                                 launches=data_launches[name],
                                 launches_loader_fed_train_steps=data_launches[name],
                                 launches_cli={run: n[name] for run, n in CLI_LAUNCHES.items()},
-                                loader_fed_train_steps=LOADER_STEPS,
+                                loader_fed_train_steps=LOADER_STEPS, **dist_keys(name),
                                 dtype="uint8 -> float32", batch=TRAIN_B, **data_rows[name]))
             continue
         if name in backward_outputs:
@@ -2804,7 +3085,7 @@ def main() -> int:
             launches_pretrain_train_step=chain_launches[name],
             launches_pretrain_eval_step=pretrain_eval_launches[name],
             launches_flagship_f32_train_step=flagship_f32_launches[name],
-            launches_cli={run: n[name] for run, n in CLI_LAUNCHES.items()},
+            launches_cli={run: n[name] for run, n in CLI_LAUNCHES.items()}, **dist_keys(name),
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             composite_ms=row.get("composite_ms"),

@@ -18,8 +18,20 @@ package reads `JAX_PLATFORMS`. With `cuda` and no card the command exits;
 Checkpoints are the original repo's `.pt` files (`train/checkpoint.py`),
 where the JAX package writes Orbax directories; `scripts/jax_checkpoint_to_pt.py`
 converts the JAX package's. The JAX CLI's `port` subcommand (torch -> Orbax)
-has no counterpart here: the port reads `.pt` files itself. Runs on more
-than one device (`--dp`, `--fsdp` other than 1) are not ported yet.
+has no counterpart here: the port reads `.pt` files itself.
+
+On more than one device, one process a device under torchrun:
+
+  torchrun --nproc_per_node N -m lss2_multimodal_nu_tpu_torch.cli train-v2 --dp N ...
+
+`--dp` x `--fsdp` must equal the number of processes (`parallel/mesh.py`:
+replicated where --fsdp is 1, FSDP2 where it is larger). `--bsize` is the
+step's global batch, as in the JAX CLI on one host, whose devices share
+it: each rank loads `--bsize // world` samples of it (the command exits
+where that does not divide) from its own shard of the split, so the rate,
+the schedule, the steps per epoch and the checkpoints mean what a one-card
+run with the same flags means. Batch norm, the losses and the evaluation's
+metrics are the global batch's; rank 0 alone prints and writes files.
 """
 from __future__ import annotations
 
@@ -32,13 +44,12 @@ import time
 import numpy as np
 import torch
 
+from .parallel import multihost
+
 
 def _build_cfg(args, family: str):
-    from .config import AugConfig, Config, GridConfig, ModelConfig, TrainConfig
+    from .config import AugConfig, Config, GridConfig, MeshConfig, ModelConfig, TrainConfig
 
-    if args.dp != 1 or args.fsdp != 1:
-        raise SystemExit("--dp/--fsdp: runs on more than one device are not ported yet "
-                         "(ROADMAP.md, queue 1 item 16); use --dp 1 --fsdp 1")
     grid = GridConfig(
         xbound=tuple(args.xbound), ybound=tuple(args.ybound),
         zbound=tuple(args.zbound), dbound=tuple(args.dbound),
@@ -68,21 +79,57 @@ def _build_cfg(args, family: str):
     # train-v2's --save_suffix appends to the log directory
     logdir = args.logdir + getattr(args, "save_suffix", "")
     return Config(grid=grid, aug=aug, model=model, train=train,
+                  mesh=MeshConfig(dp=args.dp, fsdp=args.fsdp),
                   dataroot=args.dataroot, version=args.version, logdir=logdir)
 
 
+def _say(*args) -> None:
+    """print, on rank 0 alone."""
+    if multihost.is_main():
+        print(*args)
+
+
+def _append(path: str, text: str) -> None:
+    """Append text to a file, on rank 0 alone."""
+    if multihost.is_main():
+        with open(path, "a") as f:
+            f.write(text)
+
+
 def _device(args) -> torch.device:
-    """`--device`; on a card, every kernel is built here, before the
-    loader's workers start (each would otherwise build them itself)."""
+    """`--device`, after joining the process group where torchrun started
+    more than one process (NCCL on cards, each process on its
+    `LOCAL_RANK`'s; gloo on the CPU). On a card, every kernel is built
+    here, before the loader's workers start (each would otherwise build
+    them itself), by rank 0 first: the other ranks then find them built."""
     device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available "
+                         "(--device cpu runs on the CPU)")
+    multihost.initialize(device.type)
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device cuda: no CUDA device is available "
-                             "(--device cpu runs on the CPU)")
         from .ops import _build
 
+        device = torch.device("cuda", torch.cuda.current_device())
+        if multihost.is_main():
+            _build.build_all()
+        if multihost.world() > 1:
+            torch.distributed.barrier()
         _build.build_all()
     return device
+
+
+def _mesh(cfg, device):
+    """The run's (dp, fsdp) mesh (None for one process), after checking
+    that the global batch divides over the ranks."""
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh(cfg, device.type)
+    world = multihost.world()
+    if cfg.train.batch_size % world:
+        raise SystemExit(f"--bsize {cfg.train.batch_size} is the global batch and must divide "
+                         f"over the {world} processes")
+    return mesh
 
 
 def _loaders(cfg, with_txt: bool, split_family: str, test: bool = False, nworkers: int = 8,
@@ -99,17 +146,19 @@ def _loaders(cfg, with_txt: bool, split_family: str, test: bool = False, nworker
     common = dict(aug=cfg.aug, grid=cfg.grid, data_root=dataroot,
                   split_family=split_family, with_txt=with_txt, device=device)
     lcommon = dict(num_workers=nworkers, worker_type=worker_type, host_shard=host_shard)
+    # each rank's share of the global batch
+    bsize = multihost.global_batch_to_local(cfg.train.batch_size, host_shard[1])
     if test:
         split = "test" if cfg.version == "trainval" else "mini_val"
         ds = NuA2DDataset(nusc, is_train=False, split=split, **common)
-        return DataLoader(ds, cfg.train.batch_size, shuffle=False, drop_last=True, **lcommon)
+        return DataLoader(ds, bsize, shuffle=False, drop_last=True, **lcommon)
     tr = NuA2DDataset(nusc, is_train=True,
                       rng=None if nondet_aug else np.random.default_rng(cfg.train.seed),
                       **common)
     va = NuA2DDataset(nusc, is_train=False, **common)
     return (
-        DataLoader(tr, cfg.train.batch_size, shuffle=True, drop_last=True, **lcommon),
-        DataLoader(va, cfg.train.batch_size, shuffle=False, drop_last=True, **lcommon),
+        DataLoader(tr, bsize, shuffle=True, drop_last=True, **lcommon),
+        DataLoader(va, bsize, shuffle=False, drop_last=True, **lcommon),
     )
 
 
@@ -118,7 +167,10 @@ def _evaluate(cfg, model, loader, no_bev: bool = False) -> dict:
     matrix with its IoUs (left out with `no_bev`), and for the multitask
     families the act/desc F1 scores. The model runs in eval mode and is put
     back in the mode it was in. The sums and predictions stay on the
-    device; the host reads them once, at the end."""
+    device; the host reads them once, at the end. In a group, each rank
+    evaluates its shard of every batch and `_eval_reduce` assembles the
+    global metrics before that read (in a group of one too: the same
+    numbers, bit for bit)."""
     from .train.metrics import confusion_matrix_compute, format_confusion, per_class_and_macro_f1
     from .train.steps import eval_step
 
@@ -127,6 +179,7 @@ def _evaluate(cfg, model, loader, no_bev: bool = False) -> dict:
     confmat = torch.zeros((n, n), dtype=torch.int64, device=device)
     total_loss = torch.zeros((), dtype=torch.float32, device=device)
     total_n = 0
+    world = multihost.world()
     acts_t, acts_p, descs_t, descs_p = [], [], [], []
     was_training = model.training
     model.eval()
@@ -135,7 +188,8 @@ def _evaluate(cfg, model, loader, no_bev: bool = False) -> dict:
             res = eval_step(model, batch, confmat)
             confmat = res["confmat"]
             bs = res["bsize"]  # from the shape: no sync
-            total_loss = total_loss + res["loss"].float() * bs
+            # in a group the loss is this rank's share of the global batch's
+            total_loss = total_loss + res["loss"].float() * (bs * world)
             total_n += bs
             if "act_pred" in res:
                 acts_p.append(res["act_pred"])
@@ -144,8 +198,11 @@ def _evaluate(cfg, model, loader, no_bev: bool = False) -> dict:
                 descs_t.append(batch["desc"])
     finally:
         model.train(was_training)
+    if multihost.joined():
+        confmat, total_loss, total_n, acts_p, descs_p, acts_t, descs_t = _eval_reduce(
+            confmat, total_loss, total_n, acts_p, descs_p, acts_t, descs_t)
     if total_n == 0:
-        print("[eval] WARNING: no evaluation batches (val set smaller than the "
+        _say("[eval] WARNING: no evaluation batches (val set smaller than the "
               "batch size with drop_last=True) — metrics will be NaN")
     # one copy to the host: the loss sum, the counts and the 0/1 labels are
     # exact in float64
@@ -175,14 +232,44 @@ def _evaluate(cfg, model, loader, no_bev: bool = False) -> dict:
     return out
 
 
+def _allgather(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's t stacked along a new leading axis, in rank order."""
+    return multihost.all_gather_cat(t[None])
+
+
+def _eval_reduce(confmat, total_loss, total_n, acts_p, descs_p, acts_t, descs_t,
+                 allgather=None):
+    """The global evaluation from the ranks' shards, as the JAX CLI's
+    `_multihost_eval_reduce` assembles it (the original repo's
+    `ConfusionMatrix.reduce_from_all_processes`): the confusion matrices
+    and the loss sums summed, the counts summed (every rank evaluates the
+    same number of samples: the loader gives each n // world and drops the
+    last batch), the act/desc predictions and targets concatenated in rank
+    order. Everything stays on the device. `allgather` (each rank's tensor
+    stacked on a new leading axis) is injectable for tests."""
+    allgather = allgather or _allgather
+    confmat = allgather(confmat).sum(0)
+    total_loss = allgather(total_loss.reshape(())).sum(0)
+    total_n *= allgather(torch.ones((), device=confmat.device)).shape[0]
+
+    def gather_cat(chunks):
+        local = torch.cat(chunks)
+        return [allgather(local).reshape((-1,) + local.shape[1:])]
+
+    if acts_p:
+        acts_p, descs_p = gather_cat(acts_p), gather_cat(descs_p)
+        acts_t, descs_t = gather_cat(acts_t), gather_cat(descs_t)
+    return confmat, total_loss, total_n, acts_p, descs_p, acts_t, descs_t
+
+
 def _print_restore(report: dict) -> None:
-    print(f"  format {report['format']}: loaded {report['loaded']}")
+    _say(f"  format {report['format']}: loaded {report['loaded']}")
     for comp, reason in report["dropped"].items():
-        print(f"  dropped {comp}: {reason}")
+        _say(f"  dropped {comp}: {reason}")
     if report["absent"]:
-        print(f"  not in the file, left at init: {report['absent']}")
+        _say(f"  not in the file, left at init: {report['absent']}")
     if report["unexpected"]:
-        print(f"  not in the model, ignored: {report['unexpected']}")
+        _say(f"  not in the model, ignored: {report['unexpected']}")
 
 
 def _maybe_stage1_warmstart(args, family: str, model, device, restored: bool) -> None:
@@ -199,11 +286,11 @@ def _maybe_stage1_warmstart(args, family: str, model, device, restored: bool) ->
         return
     pp = getattr(args, "pretrained_path", "")
     if pp and os.path.exists(pp):
-        print(f"Loading pre-trained weights from: {pp}")
+        _say(f"Loading pre-trained weights from: {pp}")
         _print_restore(ckpt.restore_loose(pp, model, map_location=device))
     elif pp:
-        print(f"Pre-trained weights not found at {pp}")
-        print("  Training from random/ImageNet init only")
+        _say(f"Pre-trained weights not found at {pp}")
+        _say("  Training from random/ImageNet init only")
 
 
 def run_training(args, family: str, with_txt: bool, split_family: str):
@@ -212,17 +299,19 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
     does; returns the model, in training mode."""
     from .models.factory import build_model
     from .models.vovnet_pretrain import PRETRAIN_COMPONENTS
+    from .parallel.mesh import shard_state
     from .train import checkpoint as ckpt
     from .train.state import build_optimizer
     from .train.steps import train_step
 
     cfg = _build_cfg(args, family)
     device = _device(args)
+    mesh = _mesh(cfg, device)
     os.makedirs(cfg.logdir, exist_ok=True)
     trainloader, valloader = _loaders(cfg, with_txt, split_family, nworkers=args.nworkers,
                                       nondet_aug=args.nondeterministic_aug,
-                                      worker_type=args.worker_type, host_shard=(0, 1),
-                                      device=device)
+                                      worker_type=args.worker_type,
+                                      host_shard=multihost.host_shard(), device=device)
     # as in the JAX CLI, whose probe for the model's input shapes starts the
     # loader's first epoch: training then sees its batches in its order
     if next(iter(trainloader), None) is None:
@@ -230,23 +319,23 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
             f"no training batches: {len(trainloader.dataset)} samples with "
             f"batch_size={cfg.train.batch_size} and drop_last=True"
         )
-    model = build_model(cfg, device, seed=cfg.train.seed).train()
+    model = shard_state(build_model(cfg, device, seed=cfg.train.seed).train(), mesh)
     opt, sched = build_optimizer(cfg, model, steps_per_epoch=len(trainloader))
     step = 0  # the next train step's index: its dropout seed
     restored = False
     if args.checkpoint:
-        print("loading", args.checkpoint)
+        _say("loading", args.checkpoint)
         _print_restore(ckpt.restore_loose(args.checkpoint, model, map_location=device))
     elif args.resume:
         latest = os.path.join(cfg.logdir, ckpt.STATE_LATEST)
         if os.path.isfile(latest):
-            print("resuming from", latest)
+            _say("resuming from", latest)
             step = ckpt.restore_train_state(latest, model, opt, sched, map_location=device)["step"]
             restored = True
         else:
             pl = ckpt.latest_checkpoint(cfg.logdir)
             if pl:  # the weights alone, no optimizer state
-                print("warm-starting params from", pl)
+                _say("warm-starting params from", pl)
                 _print_restore(ckpt.restore_loose(pl, model, map_location=device))
                 restored = True
     _maybe_stage1_warmstart(args, family, model, device, restored)
@@ -256,7 +345,7 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
     results_txt = os.path.join(cfg.logdir, args.results_file)
     metrics_jsonl = os.path.join(cfg.logdir, "metrics.jsonl")
     logger = None
-    if args.wandb:
+    if args.wandb and multihost.is_main():
         from .utils.logging import MetricLogger
 
         logger = MetricLogger(
@@ -272,7 +361,7 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
     try:
         for epoch in range(cfg.train.num_epochs):
             ep = epoch + 1 if stack_b else epoch
-            print(f"--------------Epoch: {ep}--------------")
+            _say(f"--------------Epoch: {ep}--------------")
             t_ep = time.time()
             for batch in trainloader:
                 metrics = train_step(model, opt, sched, batch, step)
@@ -280,9 +369,8 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
                 counter += 1
                 if counter % args.log_every == 0:
                     loss = float(metrics["loss"])
-                    print(f"Counter{counter} Train_Loss: {loss}")
-                    with open(metrics_jsonl, "a") as f:
-                        f.write(json.dumps({"step": counter, "loss": loss}) + "\n")
+                    _say(f"Counter{counter} Train_Loss: {loss}")
+                    _append(metrics_jsonl, json.dumps({"step": counter, "loss": loss}) + "\n")
                     if logger:
                         row = {"train/loss": loss}
                         if args.wandb_watch:
@@ -294,10 +382,9 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
                         logger.log(counter, row)
             if ep % max(args.eval_every, 1) == 0:
                 info = _evaluate(cfg, model, valloader)
-                print(info["confmat_str"])
-                with open(results_txt, "a") as f:
-                    if "act_overall" in info:
-                        ad_info = """
+                _say(info["confmat_str"])
+                if "act_overall" in info:
+                    ad_info = """
                 F1_Action: {0}
                 F1_Description: {1}
                 Action_overall: {2}
@@ -305,14 +392,14 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
                 Action_mean: {4}
                 Description_mean: {5}
                 """.format(
-                            info["act_f1"], info["desc_f1"], info["act_overall"],
-                            info["desc_overall"], info["act_mean"], info["desc_mean"],
-                        )
-                        f.write(f"epoch{ep}" + info["confmat_str"] + "\n"
-                                + "F1_info: " + ad_info + "\n\n")
-                    else:
-                        f.write(f"epoch{ep}" + info["confmat_str"] + "\n"
-                                + "val_loss: " + str(info["loss"]) + "\n\n")
+                        info["act_f1"], info["desc_f1"], info["act_overall"],
+                        info["desc_overall"], info["act_mean"], info["desc_mean"],
+                    )
+                    _append(results_txt, f"epoch{ep}" + info["confmat_str"] + "\n"
+                            + "F1_info: " + ad_info + "\n\n")
+                else:
+                    _append(results_txt, f"epoch{ep}" + info["confmat_str"] + "\n"
+                            + "val_loss: " + str(info["loss"]) + "\n\n")
                 if logger:
                     logger.log(counter, {
                         "epoch": ep, "val/loss": info["loss"],
@@ -334,10 +421,10 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
                             cfg.logdir, ckpt.BEST_MODEL.format(flags=args.version_flags))
                         ckpt.save_train_state(bname, model, opt, sched, step=step, epoch=ep,
                                               best_miou=best_miou)
-                    print(f"saved best model: {bname} (mIoU: {best_miou:.4f})")
+                    _say(f"saved best model: {bname} (mIoU: {best_miou:.4f})")
             if not stack_b:
                 mname = os.path.join(cfg.logdir, ckpt.MODEL_FILE.format(epoch=ep))
-                print("saving", mname)
+                _say("saving", mname)
                 ckpt.save_params(mname, model)
             # everything resume needs, overwritten each epoch
             ckpt.save_train_state(os.path.join(cfg.logdir, ckpt.STATE_LATEST), model, opt, sched,
@@ -353,11 +440,11 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
                             flags=args.version_flags, epoch=ep)),
                         model, opt, sched, step=step, epoch=ep)
             if preempt.should_stop():
-                print("preemption signal received — saved, exiting cleanly")
+                _say("preemption signal received — saved, exiting cleanly")
                 return model
-            print(f"epoch time: {time.time() - t_ep:.1f}s")
+            _say(f"epoch time: {time.time() - t_ep:.1f}s")
         if args.save_best and best_epoch >= 0:
-            print(f"Best mIoU: {best_miou:.4f} at epoch {best_epoch}")
+            _say(f"Best mIoU: {best_miou:.4f} at epoch {best_epoch}")
             if logger and logger._wandb:
                 logger._wandb.run.summary["best_miou"] = best_miou
                 logger._wandb.run.summary["best_epoch"] = best_epoch
@@ -368,17 +455,18 @@ def run_training(args, family: str, with_txt: bool, split_family: str):
     return model
 
 
-def _predict_model(args, cfg, device):
+def _predict_model(args, cfg, device, mesh):
     """The family's model (weights from seed 0, as the JAX CLI's init) in
-    eval mode, warm-started from --checkpoint."""
+    eval mode, warm-started from --checkpoint, spread over the mesh."""
     from .models.factory import build_model
+    from .parallel.mesh import shard_state
     from .train import checkpoint as ckpt
 
     model = build_model(cfg, device, seed=0)
     if args.checkpoint:
-        print("loading", args.checkpoint)
+        _say("loading", args.checkpoint)
         _print_restore(ckpt.restore_loose(args.checkpoint, model, map_location=device))
-    return model
+    return shard_state(model, mesh)
 
 
 def run_predict_iou(args) -> dict:
@@ -386,15 +474,16 @@ def run_predict_iou(args) -> dict:
     --out_file."""
     cfg = _build_cfg(args, "lss")
     device = _device(args)
+    mesh = _mesh(cfg, device)
     _, valloader = _loaders(cfg, with_txt=False, split_family="nuscenes_full",
-                            nworkers=args.nworkers, host_shard=(0, 1), device=device)
-    model = _predict_model(args, cfg, device)
+                            nworkers=args.nworkers, host_shard=multihost.host_shard(),
+                            device=device)
+    model = _predict_model(args, cfg, device, mesh)
     info = _evaluate(cfg, model, valloader)
-    print(info["confmat_str"])
-    print("val_loss: {}".format(info["loss"]))
-    with open(args.out_file, "a") as f:
-        f.write("checkpoint:{}".format(args.checkpoint) + info["confmat_str"] + "\n"
-                + "val_loss: " + str(info["loss"]) + "\n\n")
+    _say(info["confmat_str"])
+    _say("val_loss: {}".format(info["loss"]))
+    _append(args.out_file, "checkpoint:{}".format(args.checkpoint) + info["confmat_str"] + "\n"
+            + "val_loss: " + str(info["loss"]) + "\n\n")
     return info
 
 
@@ -404,6 +493,7 @@ def run_predict(args, family: str) -> dict:
     first batch's camera + BEV prediction figures."""
     cfg = _build_cfg(args, family)
     device = _device(args)
+    mesh = _mesh(cfg, device)
     if args.viz_dir:
         try:
             import matplotlib  # noqa: F401
@@ -411,8 +501,9 @@ def run_predict(args, family: str) -> dict:
             raise SystemExit("--viz_dir draws its figures with matplotlib, which is not "
                              "installed here") from None
     testloader = _loaders(cfg, with_txt=True, split_family="nu_a2d", test=True,
-                          nworkers=args.nworkers, host_shard=(0, 1), device=device)
-    model = _predict_model(args, cfg, device)
+                          nworkers=args.nworkers, host_shard=multihost.host_shard(),
+                          device=device)
+    model = _predict_model(args, cfg, device, mesh)
     if args.viz_dir:
         import matplotlib.pyplot as plt
 
@@ -428,22 +519,22 @@ def run_predict(args, family: str) -> dict:
         bev = out[0] if isinstance(out, tuple) else out
         preds = bev.argmax(dim=1).cpu().numpy()
         imgs = batch["imgs"].cpu().numpy()
-        count = min(len(preds), args.viz_count)
+        count = min(len(preds), args.viz_count) if multihost.is_main() else 0
         for i in range(count):
             fig = compose_prediction_figure(
                 imgs[i], preds[i], bx, dx,
                 out_path=os.path.join(args.viz_dir, f"pred_{i:03d}.png"))
             plt.close(fig)
-        print(f"wrote {count} figures to {args.viz_dir}")
+        _say(f"wrote {count} figures to {args.viz_dir}")
     info = _evaluate(cfg, model, testloader, no_bev=args.no_bev)
     if "confmat_str" in info:
-        print(info["confmat_str"])
+        _say(info["confmat_str"])
     report = {
         k: (v.tolist() if isinstance(v, np.ndarray) else v)
         for k, v in info.items()
         if k not in ("confmat", "confmat_str")
     }
-    print(report)
+    _say(report)
     ad_info = """
                     F1_Action: {0}
                     F1_Description: {1}
@@ -455,10 +546,9 @@ def run_predict(args, family: str) -> dict:
         info.get("act_f1"), info.get("desc_f1"), info.get("act_overall"),
         info.get("desc_overall"), info.get("act_mean"), info.get("desc_mean"),
     )
-    print(ad_info)
-    with open(args.out_file, "a") as f:
-        f.write(args.checkpoint + "\n" + info.get("confmat_str", "") + "\n"
-                + "F1_info: " + ad_info + "\n\n")
+    _say(ad_info)
+    _append(args.out_file, args.checkpoint + "\n" + info.get("confmat_str", "") + "\n"
+            + "F1_info: " + ad_info + "\n\n")
     return info
 
 
@@ -520,8 +610,10 @@ def add_common(p: argparse.ArgumentParser, lr: float = 1e-4, wdecay: float = 1e-
                    help="periodic checkpoints every N epochs")
     p.add_argument("--save_best", action=argparse.BooleanOptionalAction, default=save_best,
                    help="keep the best-mIoU checkpoint")
-    p.add_argument("--dp", default=1, type=int, help="not ported yet: 1 only")
-    p.add_argument("--fsdp", default=1, type=int, help="not ported yet: 1 only")
+    p.add_argument("--dp", default=1, type=int,
+                   help="data-parallel ranks (dp x fsdp = the processes torchrun starts)")
+    p.add_argument("--fsdp", default=1, type=int,
+                   help="ranks each parameter is sharded over (FSDP2 where > 1)")
 
 
 # each subcommand's defaults where they differ from add_common's, the
@@ -584,12 +676,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.cmd in TRAINING:
-        family, with_txt, split_family = TRAINING[args.cmd]
-        return run_training(args, family, with_txt=with_txt, split_family=split_family)
-    if args.cmd == "predict":
-        return run_predict(args, FAMILY["predict"])
-    return run_predict_iou(args)
+    # the group the command joins, it leaves at its end (a caller's stays)
+    joined = torch.distributed.is_available() and torch.distributed.is_initialized()
+    try:
+        if args.cmd in TRAINING:
+            family, with_txt, split_family = TRAINING[args.cmd]
+            return run_training(args, family, with_txt=with_txt, split_family=split_family)
+        if args.cmd == "predict":
+            return run_predict(args, FAMILY["predict"])
+        return run_predict_iou(args)
+    finally:
+        if not joined:
+            multihost.shutdown()
 
 
 if __name__ == "__main__":

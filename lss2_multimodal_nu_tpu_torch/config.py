@@ -1,8 +1,8 @@
 """Configuration of the PyTorch port (mirrors `lss2_multimodal_nu_tpu/config.py`).
 
 Same defaults as the JAX package's `GridConfig`, `AugConfig`, `ModelConfig`,
-`TrainConfig`, `Config` and `preset`; the TPU-only knob `dropout_rng_impl` is
-left out, and `MeshConfig` waits for distributed runs. `ModelConfig` adds
+`TrainConfig`, `MeshConfig`, `Config` and `preset`; the TPU-only knob
+`dropout_rng_impl` is left out. `ModelConfig` adds
 `ln_eps`, the eps of every LayerNorm of the model, and `torch_dtype`, the
 torch dtype that `compute_dtype` names.
 """
@@ -119,11 +119,23 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The (dp, fsdp) layout of a run on more than one device
+    (`parallel/mesh.py`): the batch is sharded over all dp*fsdp ranks, the
+    parameters replicated over dp and sharded over fsdp; dp*fsdp must equal
+    the world size."""
+
+    dp: int = 1
+    fsdp: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     grid: GridConfig = GridConfig()
     aug: AugConfig = AugConfig()
     model: ModelConfig = ModelConfig()
     train: TrainConfig = TrainConfig()
+    mesh: MeshConfig = MeshConfig()
     dataroot: str = "/data/nu-A2D"
     version: str = "trainval"  # 'trainval' | 'mini'
     logdir: str = "./result-log"

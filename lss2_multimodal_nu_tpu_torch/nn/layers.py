@@ -7,6 +7,14 @@ folded into the preceding conv with the running statistics. In training
 and updates the running statistics with torch's momentum 0.1 (flax's 0.9)
 and torch's unbiased variance (flax keeps the biased one; ROADMAP.md
 fault e).
+
+In a group of more than one rank (`parallel/multihost.py::world`), training
+batch norm takes the statistics of the global batch, as the JAX package's
+under GSPMD: `_GlobalBatchNorm` combines the ranks' (count, mean, M2) as Chan
+does, with one all-gather in the forward and one all-reduce in the
+backward, where the gradient flows through the global mean and variance;
+the running variance is unbiased over the global count. At world 1 the
+code is the single-process one, bit for bit.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sampling import resize_bilinear
+from ..parallel import multihost
 
 
 def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = None,
@@ -29,8 +38,11 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = Non
         y = F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
                      conv.stride, conv.padding, conv.dilation, conv.groups)
         bn.num_batches_tracked.add_(1)
-        y = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                         training=True, momentum=bn.momentum, eps=bn.eps).to(x.dtype)
+        if multihost.world() > 1:
+            y = global_batch_norm(y.float(), bn).to(x.dtype)
+        else:
+            y = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                             training=True, momentum=bn.momentum, eps=bn.eps).to(x.dtype)
         return F.relu(y) if relu else y
     if bn is not None:
         g = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
@@ -40,6 +52,63 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = Non
     y = F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
                  conv.stride, conv.padding, conv.dilation, conv.groups)
     return F.relu(y) if relu else y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training batch norm of float32 (N, C, H, W) over the group's global
+    batch. Forward: each rank's (count, mean, M2) per channel, all-gathered
+    and combined as Chan does (a single-pass sum of squares cancels at
+    activations of 1e3); backward: the global sums of dy and dy * xhat in
+    one all-reduce. The weight's and bias's gradients are the rank's own
+    share: the train step sums gradients over the group."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        n = x.numel() // c
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        m2 = var * n
+        stats = torch.cat([mean, m2, mean.new_full((1,), float(n))])
+        gathered = multihost.all_gather_cat(stats[None]).double()
+        means, m2s, counts = gathered[:, :c], gathered[:, c:2 * c], gathered[:, 2 * c:]
+        total = counts.sum()
+        gmean = (counts * means).sum(0) / total
+        gm2 = m2s.sum(0) + (counts * (means - gmean).square()).sum(0)
+        var = (gm2 / total).float()
+        gmean = gmean.float()
+        # the normalisation itself as torch's batch norm applies it, from
+        # the global statistics
+        y = F.batch_norm(x, gmean, var, weight, bias, training=False, eps=eps)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, gmean, invstd)
+        ctx.total = total.float()
+        unbiased = (gm2 / (total - 1).clamp(min=1)).float()
+        ctx.mark_non_differentiable(gmean, unbiased)
+        return y, gmean, unbiased
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        xhat = (x - mean[None, :, None, None]) * invstd[None, :, None, None]
+        c = dy.shape[1]
+        sum_dy = dy.sum(dim=(0, 2, 3))
+        sum_dy_xhat = (dy * xhat).sum(dim=(0, 2, 3))
+        glob = multihost.all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat]))
+        n = ctx.total
+        dx = (dy - glob[None, :c, None, None] / n - xhat * glob[None, c:, None, None] / n) \
+            * (weight * invstd)[None, :, None, None]
+        return dx, sum_dy_xhat, sum_dy, None
+
+
+def global_batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Training batch norm of float32 x over the group's global batch,
+    updating bn's running statistics with torch's momentum and the
+    variance unbiased over the global count."""
+    y, mean, var = _GlobalBatchNorm.apply(x, bn.weight, bn.bias, bn.eps)
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+    return y
 
 
 @contextmanager

@@ -19,6 +19,16 @@ hold only tensors and plain Python numbers, strings, lists and dicts, so
 file is written under a temporary name and renamed, so a reader never sees
 half of one.
 
+In a group (`parallel/`), every rank calls the save functions, which
+gather a sharded (FSDP2) model's and optimizer's tensors in full, in the
+same order on every rank, and only rank 0 writes: the files are the
+single-process ones, and the optimizer's keep torch's `state_dict()`
+layout (integer ids in the order of the parameter groups), where
+`torch.distributed.checkpoint` would key them by name.
+`restore_train_state` into a sharded model reads the full file on every
+rank and shards it. `PreemptionHandler.should_stop()` is agreed across
+ranks: a signal on any rank stops all of them.
+
 `load_file` also reads the original repo's files. Their metadata may hold
 numpy scalars (an mIoU computed with numpy), which `weights_only` refuses:
 it allows numpy's scalar reconstruction and numeric dtypes, under the
@@ -44,6 +54,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..models.vovnet_pretrain import PRETRAIN_COMPONENTS
+from ..parallel import multihost
 
 # file names, with the original repo's suffixes (`state_latest` is the JAX
 # package's own and takes the full-state suffix)
@@ -58,8 +69,11 @@ _NOT_COMPONENTS = ("optimizer_state_dict", "scheduler_state_dict")
 
 
 def _to_host(obj: Any) -> Any:
-    """A copy of obj with every tensor detached and on the CPU."""
+    """A copy of obj with every tensor detached and on the CPU, a sharded
+    one (DTensor) gathered in full first (a collective)."""
     if isinstance(obj, torch.Tensor):
+        if hasattr(obj, "full_tensor"):
+            obj = obj.full_tensor()
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return type(obj)((k, _to_host(v)) for k, v in obj.items())
@@ -69,6 +83,9 @@ def _to_host(obj: Any) -> Any:
 
 
 def _write(path: str, payload: Any) -> None:
+    """Write on rank 0 alone (every rank has gathered the payload)."""
+    if not multihost.is_main():
+        return
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -158,7 +175,8 @@ def restore_loose(path: str, model: torch.nn.Module, map_location) -> Dict[str, 
     that the file does not hold), "unexpected" (the file's modules that the
     model lacks)} and the file's metadata."""
     sd, meta = model_state(load_file(path, map_location))
-    own = model.state_dict()
+    live = model.state_dict()
+    own = {k: v.full_tensor() if hasattr(v, "full_tensor") else v for k, v in live.items()}
     theirs, mine = _by_component(sd), _by_component(own)
     merged = dict(own)
     report = dict(meta, loaded=[], dropped={}, absent=[],
@@ -174,11 +192,12 @@ def restore_loose(path: str, model: torch.nn.Module, map_location) -> Dict[str, 
             reason = (f"{len(missing)} keys missing, {len(extra)} unexpected, "
                       f"{len(shapes)} of another shape (first: {(missing + extra + shapes)[0]})")
             report["dropped"][comp] = reason
-            print(f"[ckpt] {path}: dropped {comp} whole, left at its init: {reason}")
+            if multihost.is_main():
+                print(f"[ckpt] {path}: dropped {comp} whole, left at its init: {reason}")
             continue
         merged.update((k, sd[k]) for k in keys)
         report["loaded"].append(comp)
-    model.load_state_dict(merged)
+    model.load_state_dict({k: _shard_like(v, live[k]) for k, v in merged.items()})
     return report
 
 
@@ -189,18 +208,35 @@ def restore_train_state(path: str, model: torch.nn.Module, optimizer: torch.opti
     (strictly); returns its metadata: `step` (the next step's index),
     `epoch` and, where saved, `best_miou`."""
     obj = load_file(path, map_location)
-    model.load_state_dict(obj["model_state_dict"])
+    live = model.state_dict()
+    model.load_state_dict({k: _shard_like(v, live.get(k)) for k, v in
+                           obj["model_state_dict"].items()})
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    opt_sd = obj["optimizer_state_dict"]
+    state = {i: {k: v if k == "step" else _shard_like(v, params[i]) for k, v in st.items()}
+             for i, st in opt_sd["state"].items()}
     # torch's Adam keeps its step counters on the host (`load_state_dict`
     # moves them to the parameters' device only for a capturable or fused
     # one): read onto the card, every step would copy them back with a
     # host sync
-    opt_sd = obj["optimizer_state_dict"]
-    for st in opt_sd["state"].values():
+    for st in state.values():
         if isinstance(st.get("step"), torch.Tensor):
             st["step"] = st["step"].cpu()
-    optimizer.load_state_dict(opt_sd)
+    optimizer.load_state_dict({"state": state, "param_groups": opt_sd["param_groups"]})
     scheduler.load_state_dict(obj["scheduler_state_dict"])
     return {k: v for k, v in obj.items() if not k.endswith("_state_dict")}
+
+
+def _shard_like(full: Any, like) -> Any:
+    """A full tensor sharded as `like` is where `like` is a DTensor (an
+    FSDP2 parameter), from this rank's own copy, with no communication;
+    `full` itself otherwise."""
+    if not hasattr(like, "placements") or not isinstance(full, torch.Tensor):
+        return full
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(full.to(like.dtype), like.device_mesh, like.placements,
+                             src_data_rank=None)
 
 
 class AsyncSaver:
@@ -233,7 +269,9 @@ class AsyncSaver:
 class PreemptionHandler:
     """SIGTERM- and SIGINT-aware stopping: once registered, either signal
     sets a flag (and still reaches a handler installed before); a training
-    loop checks `should_stop()` each epoch and saves before it exits.
+    loop checks `should_stop()` each epoch and saves before it exits. In a
+    group, `should_stop()` is a collective that every rank calls at the
+    same point: true on all ranks where any rank got a signal.
     `close()` puts the earlier handlers back. Register from the main
     thread; elsewhere signals cannot be caught and it never stops."""
 
@@ -255,7 +293,7 @@ class PreemptionHandler:
             self._prev[sig] = prev
 
     def should_stop(self) -> bool:
-        return self._flag.is_set()
+        return multihost.any_rank(self._flag.is_set())
 
     def close(self) -> None:
         for sig, prev in self._prev.items():

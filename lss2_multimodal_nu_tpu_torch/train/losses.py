@@ -13,6 +13,15 @@ own: `F.cross_entropy`'s own mean or sum over a (B, X, Y) map adds with
 float atomics on the card, in an order that varies, so the same step on
 the same weights gave losses a few ulps apart; the per-pixel terms and
 their sum repeat bit for bit.
+
+In a group of more than one rank (`parallel/multihost.py::world`), each
+rank's loss is its share of the global batch's loss, so that the shares sum
+to the single-process loss of the global batch: the cross entropies divide
+the rank's numerator by the denominator summed over the group (an
+all-reduce that carries no gradient), the BCEs, plain means over equal
+counts, divide the rank's mean by the world size. The train step then sums
+gradients and the reported losses over the group. At world 1 nothing
+changes.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import multihost
 
 BEV_CLASS_WEIGHTS = (1.0, 10.0, 5.0, 10.0)
 ACT_WEIGHTS = (1.0, 5.0, 5.0, 5.0)
@@ -48,10 +59,11 @@ def _const(values, like: torch.Tensor) -> torch.Tensor:
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            class_weights: Sequence[float]) -> torch.Tensor:
     """`nn.CrossEntropyLoss(weight=w)`: the weighted mean, normalised by the
-    sum of the samples' weights (not their count)."""
+    sum of the samples' weights (not their count), over the global batch."""
     labels = labels.long()
     w = _const(class_weights, logits)[labels]
-    return (w * F.cross_entropy(logits.float(), labels, reduction="none")).sum() / w.sum()
+    num = (w * F.cross_entropy(logits.float(), labels, reduction="none")).sum()
+    return num / multihost.all_reduce_sum(w.sum())
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, weight=None,
@@ -59,10 +71,12 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, weight=None,
     """`F.binary_cross_entropy_with_logits`, plain mean: `weight` scales each
     element's loss, `pos_weight` only the positive term."""
     logits = logits.float()
-    return F.binary_cross_entropy_with_logits(
+    loss = F.binary_cross_entropy_with_logits(
         logits, targets.float(),
         weight=None if weight is None else _const(weight, logits),
         pos_weight=None if pos_weight is None else _const(pos_weight, logits))
+    world = multihost.world()
+    return loss if world == 1 else loss / world
 
 
 def simple_loss(bev_logits: torch.Tensor, bev_labels: torch.Tensor) -> torch.Tensor:
@@ -103,8 +117,8 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
                          ignore_index: int = 255) -> torch.Tensor:
     """`nn.CrossEntropyLoss(ignore_index=...)`: the unweighted mean over the
     pixels not ignored; 0 (not NaN) when every pixel is ignored, as in the
-    JAX package."""
+    JAX package. The count is the global batch's."""
     labels = labels.long()
     per_pixel = F.cross_entropy(logits.float(), labels, ignore_index=ignore_index,
                                 reduction="none")  # 0 where ignored
-    return per_pixel.sum() / (labels != ignore_index).sum().clamp(min=1)
+    return per_pixel.sum() / multihost.all_reduce_sum((labels != ignore_index).sum()).clamp(min=1)

@@ -14,6 +14,17 @@ clip; Adam; one step of the schedule. Its metrics stay on the device
 steps run in full float32 precision whatever torch's TF32 flags say
 (`ops/_precision.py`): the backward's convolutions go through cuDNN too,
 outside the model's forward.
+
+In a group of more than one rank (`parallel/`), each rank runs its shard of
+the global batch: batch norm and the loss normalisers take the global
+batch's sums (`nn/layers.py::conv_bn`, `train/losses.py`), the gradients
+are summed over the group (`parallel/mesh.py::reduce_gradients`, or FSDP2's
+reduce-scatter), the clip sees the global norm, and the returned loss and
+its components are the global batch's, summed over the group on the device.
+The dropout rule: at world 1 the stream is seeded by (seed, step), as
+above; at world > 1 by (seed, step, rank), so that each rank draws its own
+masks for its own samples (the JAX package draws one mask over the global
+batch, which no seeding per rank could match bit for bit).
 """
 from __future__ import annotations
 
@@ -25,6 +36,8 @@ import torch
 from ..config import Config
 from ..ops._precision import full_float32
 from ..nn.layers import DropConnect
+from ..parallel import multihost
+from ..parallel.mesh import reduce_gradients
 from .losses import cross_entropy_ignore, multi_loss, multi_task_loss, simple_loss
 from .metrics import confusion_matrix_update
 
@@ -57,8 +70,10 @@ def compute_loss(cfg: Config, out, batch: Batch) -> Tuple[torch.Tensor, Dict[str
 
 
 def _step_seed(seed: int, step: int) -> int:
-    """The dropout seed of one step, a hash of (seed, step)."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    """The dropout seed of one step: a hash of (seed, step) at world 1, of
+    (seed, step, rank) in a group of more ranks."""
+    key = [seed, step] if multihost.world() == 1 else [seed, step, multihost.host_shard()[0]]
+    return int(np.random.SeedSequence(key).generate_state(1)[0])
 
 
 def train_without_dropout(model: torch.nn.Module) -> torch.nn.Module:
@@ -96,13 +111,27 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         mark("forward")
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_gradients(model)
         mark("backward")
     watch = grad_watch_summaries(_grads_by_module(model)) if cfg.train.watch_gradients else {}
     grad_norm = torch.nn.utils.clip_grad_norm_(model.parameters(), cfg.train.max_grad_norm)
+    if hasattr(grad_norm, "full_tensor"):  # FSDP2: the DTensor of the global norm
+        grad_norm = grad_norm.full_tensor()
     optimizer.step()
     scheduler.step()
     mark("optimizer")
-    return {**{k: v.detach() for k, v in metrics.items()}, "grad_norm": grad_norm, **watch}
+    return {**_global_metrics(metrics), "grad_norm": grad_norm, **watch}
+
+
+def _global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The metrics detached; in a group, each summed over the ranks (each
+    rank's loss is its share of the global batch's), in one all-reduce
+    on the device."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if not multihost.joined():
+        return metrics
+    summed = multihost.all_reduce_sum(torch.stack([v.float() for v in metrics.values()]))
+    return dict(zip(metrics, summed.unbind()))
 
 
 def _grads_by_module(model: torch.nn.Module) -> Dict[str, list]:
@@ -111,7 +140,8 @@ def _grads_by_module(model: torch.nn.Module) -> Dict[str, list]:
     out: Dict[str, list] = {}
     for name, p in model.named_parameters():
         if p.grad is not None:
-            out.setdefault(name.split(".")[0], []).append(p.grad)
+            g = p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad
+            out.setdefault(name.split(".")[0], []).append(g)
     return out
 
 

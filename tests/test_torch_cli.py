@@ -159,8 +159,9 @@ def test_loader_wiring_matches_the_jax_cli(cmd, tmp_path):
 
 def test_device_cuda_without_a_card_exits(tmp_path, monkeypatch):
     """`--device cuda` (the default) with no card stops before any data or
-    model; it never carries on on the CPU. Mesh flags other than 1 stop
-    with a message naming the distributed item."""
+    model; it never carries on on the CPU. Mesh flags whose product is not
+    the number of processes (here one, no torchrun) stop with a message
+    naming WORLD_SIZE."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(cli, "_loaders", mock.Mock(side_effect=AssertionError("reached data")))
     for cmd in ("train-v2", "predict"):
@@ -169,7 +170,7 @@ def test_device_cuda_without_a_card_exits(tmp_path, monkeypatch):
         assert "no CUDA device" in str(e.value.code)
     with pytest.raises(SystemExit) as e:
         cli.main(["train", "--device", "cpu", "--dp", "2"])
-    assert "item 16" in str(e.value.code)
+    assert "WORLD_SIZE=1" in str(e.value.code)
 
 
 # ---- the slice against JAX: predict

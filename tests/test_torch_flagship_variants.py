@@ -35,6 +35,17 @@ from test_torch_modules import FINAL_DIM, XB, camera_inputs, random_variables
 from test_torch_train import (_compare_grads, _flat, _grad_capture, _no_flax_dropout,
                               stage4_statistics_match_jax)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs in parallel workers, and torch's
+    own threads in each would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.from_numpy
 B = 2
 

@@ -23,6 +23,17 @@ from lss2_multimodal_nu_tpu_torch.models.factory import build_model
 from lss2_multimodal_nu_tpu_torch.port import state_dict_from_jax
 from test_torch_modules import FINAL_DIM, XB, camera_inputs, random_variables
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs in parallel workers, and torch's
+    own threads in each would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ablation V3 at B=2, V1 at B=1, and LSS v1 (single-scale depth) under V2
 CASES = {
     "V3": (2, dict(lss_version="v2", use_camera_attn=True, use_cross_attn=True)),

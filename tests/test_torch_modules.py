@@ -28,6 +28,17 @@ from lss2_multimodal_nu_tpu_torch.config import AugConfig, Config, GridConfig, M
 from lss2_multimodal_nu_tpu_torch.models.factory import build_model
 from lss2_multimodal_nu_tpu_torch.port import state_dict_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs in parallel workers, and torch's
+    own threads in each would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.from_numpy
 XB = (-8.0, 8.0, 0.5)  # the dryrun grid: 32 x 32 BEV
 FINAL_DIM = (32, 96)

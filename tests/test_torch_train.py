@@ -32,6 +32,17 @@ from lss2_multimodal_nu_tpu_torch.train import losses as tl, metrics as tm, stat
 from lss2_multimodal_nu_tpu_torch.train import steps as tsteps
 from test_torch_modules import FINAL_DIM, XB, camera_inputs, random_variables
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs in parallel workers, and torch's
+    own threads in each would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.from_numpy
 B = 2
 
@@ -390,24 +401,22 @@ def test_train_step_grads_match_jax(stepped):
     _compare_grads(_port_grads(model), _flat(new_state.opt_state["grads"]), "port vs JAX")
 
 
-def test_train_step_grads_chaos_control(flagship):
+def test_train_step_grads_chaos_control(flagship, stepped):
     """The yardstick of the tolerances above: the port against itself, one
     train step from the same weights with every parameter moved by 1e-7 of
     its mean |value|, meets the same per-leaf bounds, and its differences
-    are of the size of the port-against-JAX ones (printed with -s)."""
+    are of the size of the port-against-JAX ones (printed with -s). The
+    step from the weights as they are is `stepped`'s."""
     _, cfg, _, variables, _, tbatch, _ = flagship
-    grads = []
-    for eps in (0.0, 1e-7):
-        model = _fresh_model(cfg, variables)
-        gen = torch.Generator().manual_seed(5)
-        with torch.no_grad():
-            for p in model.parameters():
-                p.add_(eps * p.abs().mean() * torch.randn(p.shape, generator=gen))
-        tsteps.train_without_dropout(model)
-        opt, sched = ts.build_optimizer(cfg, model)
-        tsteps.train_step(model, opt, sched, tbatch, 0)
-        grads.append(_port_grads(model))
-    _compare_grads(grads[1], grads[0], "port vs port moved by 1e-7")
+    model = _fresh_model(cfg, variables)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1e-7 * p.abs().mean() * torch.randn(p.shape, generator=gen))
+    tsteps.train_without_dropout(model)
+    opt, sched = ts.build_optimizer(cfg, model)
+    tsteps.train_step(model, opt, sched, tbatch, 0)
+    _compare_grads(_port_grads(model), _port_grads(stepped[3]), "port vs port moved by 1e-7")
 
 
 def test_train_step_batch_norm_statistics_match_jax(stepped):
@@ -561,29 +570,32 @@ def test_dropout_places_and_rates_match_jax(flagship):
     with _recording_flax_dropout(want):
         jax.eval_shape(lambda: jmodel.apply(variables, *(jbatch[k] for k in jsteps.MODEL_INPUTS),
                                             train=True, mutable=["batch_stats"]))
-    got = _port_dropout_calls(_fresh_model(cfg, variables).train(),
-                              [tbatch[k] for k in tsteps.MODEL_INPUTS])
+    model = _fresh_model(cfg, variables)
+    got = _port_dropout_calls(model.train(), [tbatch[k] for k in tsteps.MODEL_INPUTS])
     assert got == want
     assert want == [("bev_encoder", 0.1)] * 3 + [("sceneunder", 0.5)] + [
         ("camera_transformer", 0.1)] * 2 + [("bev_fusion", 0.1), ("unified_predictor", 0.1)]
-    assert _port_dropout_calls(tsteps.train_without_dropout(_fresh_model(cfg, variables)),
+    assert _port_dropout_calls(tsteps.train_without_dropout(model),
                                [tbatch[k] for k in tsteps.MODEL_INPUTS]) == []
 
 
-def test_dropout_stream_follows_seed_and_step(flagship):
+def test_dropout_stream_follows_seed_and_step(flagship, stepped):
     """`train_step` draws its masks from (cfg.train.seed, step): from the
     same weights, the same step gives the same loss, another step or seed
-    another loss; with dropout off the step does not matter."""
+    another loss; with dropout off the step does not matter (step 4 against
+    `stepped`'s step 0). One model, its weights restored before each step."""
     _, cfg, _, variables, _, tbatch, _ = flagship
+    model = _fresh_model(cfg, variables)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
 
     def loss(step, seed=0, dropout=True):
-        c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=seed))
-        model = _fresh_model(c, variables)
+        model.cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=seed))
+        model.load_state_dict(init)
         model.train() if dropout else tsteps.train_without_dropout(model)
-        opt, sched = ts.build_optimizer(c, model)
+        opt, sched = ts.build_optimizer(model.cfg, model)
         return float(tsteps.train_step(model, opt, sched, tbatch, step)["loss"])
 
     first = loss(3)
     assert loss(3) == first
     assert loss(4) != first and loss(3, seed=1) != first
-    assert loss(3, dropout=False) == loss(4, dropout=False) != first
+    assert loss(4, dropout=False) == float(stepped[2]["loss"]) != first
