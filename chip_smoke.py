@@ -125,7 +125,18 @@ Phases (any failure exits non-zero):
      output, gradients and running statistics within BN_TOL of float64,
      torch's float32 batch norm beside; then `cli._evaluate` under FSDP2
      through the group's all-gathers against the one process's: equal,
-     kernels 1, 3, 4 and 5 launched, one host read (`dist_phase`).
+     kernels 1, 3, 4 and 5 launched, one host read (`dist_phase`);
+ 13. the trace-replay harness (`port/parity.py::check_parity`) at its
+     defaults (the card, rtol = atol = 1e-3): the CPU's float32 B=1
+     forwards of phases 4 (the flagship) and 7 (BevTxt b4) stand in for the
+     original repo's, written as traces (BevTxt's as `.npz`, the flagship's
+     as a pickle) and replayed through `build_model` with the state_dict
+     loaded by name: every output passes, kernels 1, 3, 4 and 5 launched on
+     the flagship and lift-splat alone on BevTxt (counts set to 0 before
+     each replay); then once per output one weight shifted by +1.0, the BEV
+     head's last bias (`bev` fails) and a bias that only `act` reads (`act`
+     fails, `bev` passes); each report, replay ms and the phase's seconds
+     printed (`parity_phase`).
 
 Phases 2, 2b and 2c run kernels, plain versions and yardsticks in full
 float32 (`ops/_precision.py::full_float32`); phases 3 to 8 run under
@@ -1154,7 +1165,7 @@ def stack_a_models(dev, family, calib_inputs, seed=0, **train):
     return card, cpu
 
 
-def stack_a_eval(dev, wrappers):
+def stack_a_eval(dev, wrappers, traces):
     """Phase 7: BevTxt's eval forward at full width (b4, C=64, float32) at
     B=1 (predict's batch) and B=6, through `build_model`: one lift-splat
     launch and nothing else of the port's kernels per forward, finite outputs
@@ -1163,8 +1174,9 @@ def stack_a_eval(dev, wrappers):
     `bevencode`, `txt_branch`) and peak memory. Then at B=1 the card's f32
     forward of BevTxt, LSS and BevTxtOnlyBev against the CPU's (2e-3 on the
     BEV, 1e-3 on act/desc), and BevTxt's bit for bit against a forward with
-    TF32 turned off by the caller. Returns (launches of the B=6 forward,
-    failure message or None)."""
+    TF32 turned off by the caller. BevTxt's B=1 CPU forward goes into
+    `traces` for phase 13. Returns (launches of the B=6 forward, failure
+    message or None)."""
     import torch
 
     from lss2_multimodal_nu_tpu_torch.ops._precision import full_float32
@@ -1249,6 +1261,7 @@ def stack_a_eval(dev, wrappers):
         if n_launch != 1:
             return launches, f"{family} made {n_launch} lift-splat launches, not 1"
         if family == "bev_txt":
+            traces[family] = parity_trace(family, cpu_model, [t.numpy() for t in cpu_one], want)
             matmul, cudnn_tf32 = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
             torch.backends.cudnn.allow_tf32 = False
             torch.set_float32_matmul_precision("highest")
@@ -2785,6 +2798,93 @@ def dist_phase(dev, wrappers):
         shutil.rmtree(store, ignore_errors=True)
 
 
+# phase 13: the trace-replay harness. The CPU's float32 forwards of phases 4
+# (the flagship) and 7 (BevTxt b4) stand in for the original repo's, written
+# in `port/parity.py`'s trace format. Per family: the bias of the last conv
+# that produces `bev`, and a bias that only `act` reads.
+PARITY_SHIFTS = {
+    "bev_txt": ("bevencode.up2.4.bias", "predictorf2.0.bias"),
+    "vovnet_transformer": ("bev_encoder.seg_head.6.bias", "unified_predictor.action_head.bias"),
+}
+
+
+def parity_trace(family, model, inputs, outputs):
+    """A trace of `model`'s forward on the numpy `inputs`, as the original
+    repo would dump it: NCHW images and outputs, the state_dict as numpy."""
+    from lss2_multimodal_nu_tpu_torch.port.parity import INPUTS, OUTPUTS
+
+    return {"inputs": dict(zip(INPUTS, inputs)),
+            "outputs": {n: t.numpy() for n, t in zip(OUTPUTS, outputs)},
+            "state_dict": {k: v.numpy() for k, v in model.state_dict().items()},
+            "family": family, "variant": "b4"}
+
+
+def parity_phase(wrappers, traces):
+    """Phase 13: `check_parity` on the card at its defaults (rtol = atol =
+    1e-3) on BevTxt's trace, written as `.npz`, and the flagship's, as a
+    pickle: every output must pass. Then once per output one weight shifted
+    by +1.0: the BEV head's last bias must fail `bev`, a bias that only
+    `act` reads must fail `act` and leave `bev` passing. Each replay's report,
+    wall ms (the trace read, `build_model`, the load, the forward and the
+    comparison) and launches (counts set to 0 just before it) are printed.
+    Returns ({family: launches of the replay as traced}, failure message or
+    None)."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from lss2_multimodal_nu_tpu_torch.port.parity import check_parity
+
+    t0 = time.perf_counter()
+    expected = {"vovnet_transformer": {name: k[2] for name, k in KERNELS.items()},
+                "bev_txt": {name: int(name == "lift_splat") for name in wrappers}}
+    out_dir = ROOT / "build" / "parity13"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    launches = {}
+    try:
+        for family, suffix in (("bev_txt", ".npz"), ("vovnet_transformer", ".pkl")):
+            trace = traces[family]
+            bev_key, act_key = PARITY_SHIFTS[family]
+            for key in (None, bev_key, act_key):
+                sd = dict(trace["state_dict"])
+                if key:
+                    sd[key] = sd[key] + 1.0
+                path = out_dir / f"{family}{suffix}"
+                if suffix == ".npz":
+                    np.savez(path, **dict(trace, state_dict=sd))
+                else:
+                    with open(path, "wb") as f:
+                        pickle.dump(dict(trace, state_dict=sd), f)
+                for f in wrappers.values():
+                    f.launches = 0
+                t1 = time.perf_counter()
+                report = check_parity(str(path))
+                ms = (time.perf_counter() - t1) * 1e3
+                n = {name: f.launches for name, f in wrappers.items()}
+                label = f"{family} {'as traced' if key is None else key + ' + 1.0'}"
+                print(f"13 replay {label} ({suffix}): {ms:.1f} ms, launches {json.dumps(n)}")
+                for name, r in report.items():
+                    print(f"  {name}: {json.dumps(r)}")
+                if n != expected[family]:
+                    return launches, f"13: {label} launched {n}, expected {expected[family]}"
+                passed = {name: r["pass"] for name, r in report.items()}
+                if key is None:
+                    launches[family] = n
+                    want = {name: True for name in ("bev", "act", "desc")}
+                elif key == bev_key:
+                    want = dict(passed, bev=False)
+                else:
+                    want = dict(passed, bev=True, act=False)
+                if passed != want:
+                    return launches, f"13: {label}: pass {passed}, expected {want}"
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase 13 (the trace-replay harness): {time.perf_counter() - t0:.1f} s")
+    return launches, None
+
+
 def precision_flags():
     """torch's process-wide float32 precision flags, as a short string."""
     import torch
@@ -2794,6 +2894,7 @@ def precision_flags():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import numpy  # noqa: F401
         import torch
@@ -2866,6 +2967,8 @@ def main() -> int:
     one = fake_inputs(1, seed=3)
     with torch.inference_mode():
         out_cpu = cpu_model(*[torch.from_numpy(a) for a in one])
+    # phase 13 replays this CPU forward as a trace of the original model's
+    traces = {"vovnet_transformer": parity_trace("vovnet_transformer", cpu_model, one, out_cpu)}
     tol = {"bev_seg": 2e-3, "action": 1e-3, "desc": 1e-3}
     matmul, cudnn_tf32 = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
 
@@ -3003,7 +3106,7 @@ def main() -> int:
 
     # ---- 7. Stack A: BevTxt's eval forward at full width, B=1 and B=6, float32;
     # LSS and BevTxtOnlyBev at B=1 against the CPU
-    stack_a_launches, err = stack_a_eval(dev, wrappers)
+    stack_a_launches, err = stack_a_eval(dev, wrappers, traces)
     if err:
         return _fail(err)
     torch.cuda.empty_cache()
@@ -3057,11 +3160,20 @@ def main() -> int:
     if err:
         return _fail(err)
 
+    # ---- 13. the trace-replay harness on the card: phases 4's and 7's CPU
+    # forwards as traces, replayed as traced and with one weight shifted
+    torch.cuda.empty_cache()
+    parity_launches, err = parity_phase(wrappers, traces)
+    if err:
+        return _fail(err)
+    del traces
+
     kernels = []
     dist_keys = lambda name: dict(
         launches_dist_train_step=dist_launches["replicated"][name],
         launches_dist_fsdp_train_step=dist_launches["fsdp"][name],
-        launches_dist_eval=dist_launches["eval fsdp"][name])
+        launches_dist_eval=dist_launches["eval fsdp"][name],
+        launches_parity_replay=parity_launches["vovnet_transformer"][name])
     backward_outputs = {"deformable_sample_backward": ("dv", "dlx", "dly", "dattn"),
                         "lift_splat_backward": ("dfeat", "ddepth")}
     for name, (src, replaces, n_eval, _) in KERNELS.items():
@@ -3104,6 +3216,7 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces, launches=n_launch,
             launches_eval_forward=stack_a_launches[name[:-4]],
             launches_train_step=stack_a_train_launches[name[:-4]], dtype="float32",
+            launches_parity_replay=parity_launches["bev_txt"][name[:-4]],
             launches_cli={run: n[name[:-4]] for run, n in CLI_LAUNCHES.items()
                           if run.split()[0] in ("pretrain", "train", "train-onlybev", "predict",
                                                 "predict-iou")},
@@ -3111,6 +3224,7 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], composite_ms=row.get("composite_ms"),
         ))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

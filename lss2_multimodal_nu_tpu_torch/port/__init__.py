@@ -19,8 +19,8 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from .nn.efficientnet import trunk_blocks
-from .nn.vovnet import TIMM_CONFIGS, VoVNetSimple
+from ..nn.efficientnet import trunk_blocks
+from ..nn.vovnet import TIMM_CONFIGS, VoVNetSimple
 
 Tree = Dict[str, Any]
 

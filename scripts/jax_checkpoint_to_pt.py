@@ -15,8 +15,8 @@ model's family and sizes come from them, as in `cli.py`); a full state of a
 Stack B run, whose learning rate follows the warmup-cosine schedule, also
 needs `--steps_per_epoch`, the run's batches per epoch.
 
-The weights go through `port.py::state_dict_from_jax`. A full state also
-carries the optimizer: optax's Adam moments `mu` and `nu` are trees shaped
+The weights go through `port/__init__.py::state_dict_from_jax`. A full state
+also carries the optimizer: optax's Adam moments `mu` and `nu` are trees shaped
 like the params, so the same rules map them to torch Adam's `exp_avg` and
 `exp_avg_sq` of each parameter, and the Adam count becomes each
 parameter's `step`; the scheduler stands at the state's step. Needs JAX
