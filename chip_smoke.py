@@ -20,10 +20,12 @@ Phases (any failure exits non-zero):
      lift-splat wrapper with its index preparation, which is also timed
      alone, and its output repeated bit for bit;
   2b. the two backward kernels against their plain versions at the
-     train-v2 shapes (B=8), in float32 and bfloat16, every output checked:
-     the deformable sampling's at both kinds of locations, beside autograd
-     through the composite yardstick; lift-splat's (the plain version is
-     its composite), repeated bit for bit;
+     train-v2 shapes (B=8), in float32 and bfloat16, every output checked
+     and repeated bit for bit: the deformable sampling's at uniform, local
+     and one-cell locations (every point in one cell), beside autograd
+     through the composite yardstick, its steps (keys and sort, dv, query)
+     timed alone, and at uniform ones with the cotangent scaled by 2^-20
+     and 2^20; lift-splat's (the plain version is its composite);
   3. the flagship eval forward (VoVNetBEVTransformer, vovnet39, LSS v2, V3,
      6 cameras at 128x352 into a 200x200 BEV, B=6, bfloat16) through
      `build_model`, with every kernel's launch count checked, then timed;
@@ -37,15 +39,16 @@ Phases (any failure exits non-zero):
      schedule: B=8, lr 1e-4, wd 1e-8, clip 10, warmup-cosine; but bfloat16
      and LSS v2, where the CLI defaults to float32 and v1) through
      `train/steps.py::train_step`, with every kernel's launch count checked,
-     5 steps on one batch that must move the loss, then timed and profiled,
-     with no `cudaStreamSynchronize` or `cudaMemcpy` in a step;
+     5 steps on one batch that must move the loss, "train steps repeat"
+     (below), then timed and profiled, with no `cudaStreamSynchronize` or
+     `cudaMemcpy` in a step;
   6. one float32 train step at B=1, dropout off, on the card against the
      CPU: loss, grad_norm and the gradients upstream of both sampling
      kernels, printed beside the card's own spread from weights moved by
      1e-7, the yardstick of their limits; and the card's step under torch's
      defaults and under matmul "high" against its step with TF32 turned off
-     by the caller (the step pins it): the loss bit for bit, the gradients
-     within PIN_GRAD_TOL;
+     by the caller (the step pins it): the loss and every gradient bit for
+     bit;
   2c. (run with phase 2) kernels 3 and 3b at Stack A's width, C=64, in
      float32 and bfloat16: the forward at B=6 and B=1, the backward at B=6,
      against their plain versions with phase 2's limits, repeated bit for
@@ -59,14 +62,14 @@ Phases (any failure exits non-zero):
   8. BevTxt's train step at the CLI's `train` defaults (B=6, float32, lr
      1e-4, wd 1e-8, clip 5.0, one group, no schedule): one lift-splat forward
      and backward launch a step, no host sync, 5 steps that move the loss,
-     timed and split; one B=1 step on the card against the CPU beside the
+     "train steps repeat", timed and split; one B=1 step on the card against the CPU beside the
      card's own spread from weights moved by 1e-7;
   9. Stack B's stage-1 -> stage-2 chain at the CLI's defaults, float32,
      LSS v1, checkpoints in the original repo's `.pt` formats
      (`train/checkpoint.py`): 9a. pretrain-v2 (VoVNetPreTrain, B=12, clip
      5.0, one group, warmup-cosine) on labels with pixels at 255: launches
      of kernels 1, 2, 3 and 3b, no host sync, 5 steps that move the loss,
-     timed, split and profiled (cuDNN's FFT kernels counted), what ROADMAP
+     "train steps repeat", timed, split and profiled (cuDNN's FFT kernels counted), what ROADMAP
      fault 7's statistics pass costs (stage 4 runs at v1 in training only,
      without autograd, for its batch-norm statistics), one
      B=12 eval step (kernels 1, 3, 4, 5), and at B=1 the card against the
@@ -77,7 +80,8 @@ Phases (any failure exits non-zero):
      the flagship's float32 train step timed as in 9a, and a v2 pretrain's
      file into the v1 flagship dropping `depth_net` whole; 9c.
      `state_latest.pth` saved and restored into fresh objects, the state
-     bit for bit and the next step's loss bit for bit;
+     bit for bit and the next step's loss, gradients and weights bit for
+     bit;
  10. the nu-A2D data slice at full width (900x1600 JPEGs, `AugConfig`'s
      defaults with flips, 128x352 inputs, the 200x200 grid): 10a. the
      port's `synthetic.generate` fixture over every mini_train and mini_val
@@ -117,8 +121,9 @@ Phases (any failure exits non-zero):
      again (the control), then in an NCCL group of one rank, where the
      loss normalisers', metrics' and replicated gradients' all-reduces run
      as collectives of one, replicated and FSDP2 from the same weights: the
-     loss bit for bit, the gradients within PIN_GRAD_TOL beside the
-     control's spread, kernels 1, 2, 3 and 3b launched, no host sync in a
+     control, the replicated step and FSDP2 each bit for bit with the first
+     (loss, gradients, weights after the step), kernels 1, 2, 3 and 3b
+     launched, no host sync in a
      step, the step's median beside the one process's; 12a. the global
      batch norm (`_GlobalBatchNorm`, which the step takes only at world >
      1) called in the group at each of the step's batch-norm shapes:
@@ -141,7 +146,11 @@ Phases (any failure exits non-zero):
 Phases 2, 2b and 2c run kernels, plain versions and yardsticks in full
 float32 (`ops/_precision.py::full_float32`); phases 3 to 8 run under
 torch's default flags, as a user's program would, and the port's entry
-points pin full float32 themselves. The last lines are the card
+points pin full float32 themselves. "Train steps repeat" (`repeat_check`,
+phases 5, 8, 9a and 9b: every training path): from one saved state the
+same train step on the same batch twice, the loss, every gradient, every
+parameter and buffer after it and Adam's moments `torch.equal`, one line
+per path, the first leaf that differs named. The last lines are the card
 (nvidia-smi), one JSON object with every kernel's numbers (the deformable
 kernels' at uniform locations; lift-splat at C=64 as entries of their own),
 and `{"ok": true, "device": {...}}`. Needs
@@ -184,12 +193,10 @@ TRAIN_B, STEPS_PER_EPOCH = 8, 1
 GRAD_TOL, GRAD_NORM_TOL, GRAD_TOL_LINEAR = 0.2, 0.05, 1e-2
 # Phase 6's card step under torch's defaults, and again with matmul "high",
 # against the same step with TF32 turned off by the caller (the step pins full
-# float32 itself, its backward too): the loss bit for bit, and each leaf's
-# gradient within PIN_GRAD_TOL in norm. Pinned, they differed by at most
-# 1.6e-6 (the deformable backward's atomics add in varying order); with the
-# pin taken out of the forward and the step, by 0.47 on the stem conv
+# float32 itself, its backward too, and every sum in it has a fixed order):
+# the loss and every gradient bit for bit. With the pin taken out of the
+# forward and the step, the stem conv's gradient moved by 0.47 in norm
 # (scripts/port_precision.py, NVIDIA H100 80GB HBM3, 700.00 W).
-PIN_GRAD_TOL = 1e-4
 # Stack A (phases 2c, 7, 8): the lift-splat width (`cam_channels`), train's
 # batch (the JAX CLI's `train` default) and predict's batch
 STACK_A_C, STACK_A_B, PREDICT_B = 64, 6, 1
@@ -432,7 +439,9 @@ def deform_inputs(dev, bh, seed=7, locations="uniform"):
     drawn over the whole map with 5% clamped to the edges; "local" are the
     main path's kind, each query's own cell (the reference grid of
     `nn/transformer.py`) plus Gaussian offsets of 4 cells, clamped to
-    [0, 1] (the offsets' init puts point k at k+1 cells)."""
+    [0, 1] (the offsets' init puts point k at k+1 cells); "one_cell" are
+    all inside one cell (the corner 00 at x 137, y 61), at uniform places
+    in it, the most that learned offsets could pile up."""
     import numpy as np
     import torch
 
@@ -443,6 +452,9 @@ def deform_inputs(dev, bh, seed=7, locations="uniform"):
     if locations == "uniform":
         lx = torch.clamp(t(rng.uniform(0, 1, size=(bh, NPTS, n))) * 1.1 - 0.05, 0, 1)
         ly = torch.clamp(t(rng.uniform(0, 1, size=(bh, NPTS, n))) * 1.1 - 0.05, 0, 1)
+    elif locations == "one_cell":
+        lx = t((137.51 + 0.98 * rng.uniform(0, 1, size=(bh, NPTS, n))) / GRID)
+        ly = t((61.51 + 0.98 * rng.uniform(0, 1, size=(bh, NPTS, n))) / GRID)
     else:
         cells = np.linspace(0, 1, GRID, dtype=np.float32)
         ref_y, ref_x = (a.reshape(n) for a in np.meshgrid(cells, cells, indexing="ij"))
@@ -607,14 +619,16 @@ def kernel_cases(dev):
 
 def backward_cases(dev):
     """The deformable-sampling backward at the train-v2 shapes (B=8: 64 value
-    maps of 200x200x32, 8 points), at uniform and local locations: (dtype,
-    locations, kernel_fn, plain_fn, composite yardstick, bytes, ops,
+    maps of 200x200x32, 8 points), at uniform, local and one-cell
+    locations, and at uniform ones again with the cotangent scaled by 2^-20
+    and 2^20 (`scale`; checked, not timed): (dtype, locations, scale,
+    kernel_fn, plain_fn, composite yardstick or None, bytes, ops,
     tolerances per output). Bytes: v and g in, lx/ly/attn in, dv in v's
     dtype and the three float32 small gradients out, each once (the float32
-    buffer that the kernel sums dv in is its own scratch, not an output of
-    the function). Ops: per (map, point, query, channel) and corner, an FMA
-    for rc (2) and a multiply, a multiply and an add for dv (3), in
-    float32."""
+    dv that the kernel sums and the CSR it sorts are its own scratch, not
+    outputs of the function). Ops: per (map, point, query, channel) and
+    corner, an FMA for rc (2) and a multiply, a multiply and an add for dv
+    (3), in float32."""
     import numpy as np
     import torch
 
@@ -622,24 +636,32 @@ def backward_cases(dev):
 
     bh, n = TRAIN_B * NH, GRID * GRID
     g = torch.from_numpy(np.random.default_rng(12).normal(size=(bh, n, DH)).astype(np.float32)).to(dev)
-    inputs = {kind: deform_inputs(dev, bh, seed=11, locations=kind) for kind in ("uniform", "local")}
+    inputs = {kind: deform_inputs(dev, bh, seed=11, locations=kind)
+              for kind in ("uniform", "local", "one_cell")}
     cases = []
     for dt, name_dt in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
         es = 4 if dt == torch.float32 else 2
-        for kind, (v, lx, ly, attn) in inputs.items():
-            a = (v.to(dt), lx, ly, attn, g.to(dt))
+        for kind, scale in (("uniform", 1.0), ("local", 1.0), ("one_cell", 1.0),
+                            ("uniform", 2.0 ** -20), ("uniform", 2.0 ** 20)):
+            v, lx, ly, attn = inputs[kind]
+            a = (v.to(dt), lx, ly, attn, (g * scale).to(dt))
             cases.append(dict(
-                dtype=name_dt, locations=kind,
+                dtype=name_dt, locations=kind, scale=scale,
                 kernel=lambda a=a: ds.deformable_sample_combine_xy_backward(*a, GRID, GRID),
+                steps=lambda a=a: ds._backward_steps(*a, GRID, GRID)[0],
                 plain=lambda a=a: ds.deformable_sample_combine_xy_backward_plain(*a, GRID, GRID),
-                composite=lambda a=a: deform_composite(*a[:4], g=a[4]),
+                # grid_sample's backward adds with atomics into the one cell's
+                # four rows there: not a yardstick worth its time
+                composite=(lambda a=a: deform_composite(*a[:4], g=a[4]))
+                if kind != "one_cell" else None,
                 bytes=3 * bh * n * DH * es + 6 * bh * NPTS * n * 4,
                 ops=bh * n * NPTS * DH * 4 * 5,
                 # Ten times the errors measured on the H100 or more: dv 3.9e-6
-                # in float32 (atomics add in a varying order) and 1.6e-3 in
-                # bfloat16 (dv is rounded once at the end, and the order may
-                # flip that rounding); dlx/dly/dattn are float32 in both
-                # dtypes, 8.1e-6, where rc_01 - rc_00 cancels.
+                # in float32 and 1.6e-3 in bfloat16 (dv is rounded once at the
+                # end, and the plain version's other order may flip that
+                # rounding); dlx/dly/dattn are float32 in both dtypes, 8.1e-6,
+                # where rc_01 - rc_00 cancels. The one cell's rows sum 320000
+                # points each, about 1e-5 apart in two float32 orders.
                 tol={"dv": 2 ** -6 if dt == torch.bfloat16 else 5e-5,
                      "dlx": 1e-4, "dly": 1e-4, "dattn": 1e-4},
             ))
@@ -746,6 +768,44 @@ def train_setup(dev, dtype, seed=0):
     perturb(model, seed=seed + 1)
     opt, sched = build_optimizer(cfg, model.train(), steps_per_epoch=STEPS_PER_EPOCH)
     return model, opt, sched
+
+
+# the four training paths, by the label their phase gives them
+TRAIN_PATHS = ("flagship bf16", "BevTxt f32", "pretrain-v2 f32", "train-v2 flagship f32")
+
+
+def train_path(dev, label):
+    """(model in training mode, optimizer, scheduler, batch) of one of the
+    four training paths as its phase builds it: the flagship in bfloat16 at
+    B=8 (phase 5), BevTxt b4 in float32 at B=6 (8), pretrain-v2 in float32
+    at B=12 (9a), train-v2's flagship in float32 at B=8 (9b); weights from a
+    seed, without phase 8's batch-norm calibration and phase 9b's warm
+    start, which change no step's work. Phases 5 and 9a build their paths
+    with it, and scripts that time or check the four steps alone."""
+    from lss2_multimodal_nu_tpu_torch.models.factory import build_model
+    from lss2_multimodal_nu_tpu_torch.train.state import build_optimizer
+
+    if label == "flagship bf16":
+        model, opt, sched = train_setup(dev, "bfloat16")
+        return model, opt, sched, train_batch(dev, TRAIN_B, seed=5)
+    if label == "BevTxt f32":
+        cfg = stack_a_config("bev_txt", batch_size=STACK_A_B, lr=1e-4, weight_decay=1e-8,
+                             max_grad_norm=5.0)
+        batch = train_batch(dev, STACK_A_B, seed=5)
+    elif label == "pretrain-v2 f32":
+        cfg = chain_config("vovnet_pretrain", batch_size=PRETRAIN_B, lr=1e-4, weight_decay=1e-8,
+                           max_grad_norm=5.0, num_epochs=60, warmup_epochs=5, use_schedule=True)
+        batch = pretrain_batch(dev, PRETRAIN_B, seed=11)
+    elif label == "train-v2 flagship f32":
+        cfg = chain_config("vovnet_transformer", batch_size=TRAIN_B, lr=1e-4, weight_decay=1e-8,
+                           max_grad_norm=10.0, num_epochs=60, warmup_epochs=5, use_schedule=True)
+        batch = train_batch(dev, TRAIN_B, seed=13)
+    else:
+        raise ValueError(f"no training path {label!r}; they are {TRAIN_PATHS}")
+    model = build_model(cfg, device=dev, seed=0)
+    perturb(model, seed=1)
+    opt, sched = build_optimizer(cfg, model.train(), steps_per_epoch=STEPS_PER_EPOCH)
+    return model, opt, sched, batch
 
 
 def split_step_ms(model, opt, sched, batch, step, reps=5):
@@ -973,27 +1033,42 @@ def check_kernels(dev):
     bwd_rows = {}
     for c in backward_cases(dev):
         got, ref = c["kernel"](), c["plain"]()
+        again = c["kernel"]()
         torch.cuda.synchronize()
-        kms = time_ms(c["kernel"])
-        pms = time_ms(c["plain"], reps=5, warmup=1)
-        composite = c["composite"]()
-        cms = time_ms(composite, reps=10)
-        del composite
+        repeats = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        del again
+        timed = c["scale"] == 1.0
+        if timed:
+            kms = time_ms(c["kernel"])
+            pms = time_ms(c["plain"], reps=5, warmup=1)
+            steps = c["steps"]()
+            parts = {name: time_ms(fn) for name, fn in steps.items()}
+            del steps
+            cms = None
+            if c["composite"] is not None:
+                composite = c["composite"]()
+                cms = time_ms(composite, reps=10)
+                del composite
+            print(f"deformable backward {c['dtype']} at {c['locations']} locations: "
+                  f"{kms:.4f} ms, its steps (each timed alone) {json.dumps(parts)}")
         t_bytes, t_ops = c["bytes"] / HBM_BYTES_PER_S * 1e3, c["ops"] / PEAK_OPS["float32"] * 1e3
         for out, a, b in zip(("dv", "dlx", "dly", "dattn"), got, ref):
             a, b = a.float(), b.float()
             err = float((a - b).abs().max())
             rel = err / max(float(b.abs().max()), 1e-30)
-            passed = bool(torch.isfinite(a).all()) and rel <= c["tol"][out]
+            passed = bool(torch.isfinite(a).all()) and rel <= c["tol"][out] and repeats
             ok &= passed
             row = dict(name="deformable_sample_backward", output=out, dtype=c["dtype"],
                        max_abs_err=err, max_rel_err=rel, rel_tol=c["tol"][out], passed=passed,
-                       ms=kms, plain_ms=pms, library_ms=None, bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       bytes=c["bytes"], ops=c["ops"], locations=c["locations"],
-                       composite_ms=cms)
+                       repeats_bit_for_bit=repeats, locations=c["locations"],
+                       g_scale=c["scale"])
+            if timed:
+                row.update(ms=kms, parts_ms=parts, plain_ms=pms, library_ms=None,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           bytes=c["bytes"], ops=c["ops"], composite_ms=cms)
+                bwd_rows[(out, c["dtype"], c["locations"])] = row
             print("kernel_check " + json.dumps(row))
-            bwd_rows[(out, c["dtype"], c["locations"])] = row
         del got, ref
     for c in lift_backward_cases(dev):
         got, ref = c["kernel"](), c["plain"]()
@@ -1411,14 +1486,69 @@ def pretrain_batch(dev, b, seed):
     return batch
 
 
+def step_leaves(model, opt, metrics):
+    """{name: a copy} of what a train step leaves: its loss and grad_norm,
+    every gradient, every parameter and buffer, Adam's two moments of each
+    parameter."""
+    out = {"loss": metrics["loss"].clone(), "grad_norm": metrics["grad_norm"].clone()}
+    params = dict(model.named_parameters())
+    out.update((f"grad {n}", p.grad.clone()) for n, p in params.items() if p.grad is not None)
+    out.update((f"weight {n}", t.detach().clone()) for n, t in model.state_dict().items())
+    for n, p in params.items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            if k in opt.state.get(p, {}):
+                out[f"{k} {n}"] = opt.state[p][k].clone()
+    return out
+
+
+def repeat_check(label, model, opt, sched, batch, step):
+    """"train steps repeat": the model's, optimizer's and scheduler's state
+    saved, train step `step` run, the state restored and the same step run
+    on the same batch again (dropout seeded by (seed, step) both times);
+    the loss, grad_norm, every gradient, every parameter and buffer after
+    the step and Adam's moments must be torch.equal in the two runs. Prints
+    one line; returns a failure naming the first leaf that differs, or
+    None. The model is left as after one step."""
+    import copy
+
+    from lss2_multimodal_nu_tpu_torch.train.steps import train_step
+
+    saved = ({k: v.clone() for k, v in model.state_dict().items()}, copy.deepcopy(opt.state_dict()),
+             copy.deepcopy(sched.state_dict()))
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(saved[0])
+        opt.load_state_dict(copy.deepcopy(saved[1]))  # Adam keeps tensors it is given
+        sched.load_state_dict(saved[2])
+        runs.append(step_leaves(model, opt, train_step(model, opt, sched, batch, step)))
+    first, again = runs
+    differ = [n for n in first if n not in again or not torch_equal(first[n], again[n])]
+    kinds = {k: sum(1 for n in first if n.startswith(k))
+             for k in ("grad ", "weight ", "exp_avg ", "exp_avg_sq ")}
+    print(f"train steps repeat, {label}: step {step} run twice from one state, loss, grad_norm, "
+          f"{kinds['grad ']} gradients, {kinds['weight ']} parameters and buffers, "
+          f"{kinds['exp_avg '] + kinds['exp_avg_sq ']} Adam moments bit for bit: {not differ}"
+          + (f"; {len(differ)} differ, first {differ[0]}" if differ else ""))
+    if differ:
+        return f"train steps repeat: the {label} step differs on its second run at {differ[0]}"
+    return None
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
 def drive_train(label, model, opt, sched, batch, wrappers, expected):
     """A main path's train step through `train_step`: every count set to 0
     just before the first step and read just after, against `expected`; 5
     steps on one batch that must move the loss by more than 1e-3, everything
-    finite; the median of 10 steps after 3 more on the host clock, the
-    forward / backward / optimizer split (CUDA events), device busy, idle
-    share, the busiest kernels (cuDNN's FFT kernels among them), host syncs
-    (none allowed) and peak memory. Returns (launches, the next step's
+    finite; "train steps repeat" (`repeat_check`) at step 5; the median of
+    10 steps after 3 more on the host clock, the forward / backward /
+    optimizer split (CUDA events), device busy, idle share, the busiest
+    kernels (cuDNN's FFT kernels among them), host syncs (none allowed) and
+    peak memory. Returns (launches, the next step's
     index, failure message or None)."""
     import torch
 
@@ -1446,7 +1576,10 @@ def drive_train(label, model, opt, sched, batch, wrappers, expected):
         return launches, 5, f"the {label} loss did not move in 5 steps: {losses}"
     if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
         return launches, 5, f"non-finite {label} weights after 5 steps"
-    step = 5
+    err = repeat_check(label, model, opt, sched, batch, 5)
+    if err:
+        return launches, 6, err
+    step = 6
     for _ in range(3):
         train_step(model, opt, sched, batch, step)
         step += 1
@@ -1541,16 +1674,12 @@ def pretrain_phase(dev, wrappers):
     from lss2_multimodal_nu_tpu_torch.train.state import build_optimizer
     from lss2_multimodal_nu_tpu_torch.train.steps import eval_step, train_step, train_without_dropout
 
-    cfg = chain_config("vovnet_pretrain", batch_size=PRETRAIN_B, lr=1e-4, weight_decay=1e-8,
-                       max_grad_norm=5.0, num_epochs=60, warmup_epochs=5, use_schedule=True)
     torch.cuda.empty_cache()
-    model = build_model(cfg, device=dev, seed=0)
-    perturb(model, seed=1)
-    opt, sched = build_optimizer(cfg, model.train(), steps_per_epoch=STEPS_PER_EPOCH)
+    model, opt, sched, batch = train_path(dev, "pretrain-v2 f32")
+    cfg = model.cfg
     if len(opt.param_groups) != 1 or sched.get_last_lr() != [0.0]:
         return model, None, None, (f"the pretrain trains in {len(opt.param_groups)} groups from "
                                    f"{sched.get_last_lr()}")
-    batch = pretrain_batch(dev, PRETRAIN_B, seed=11)
     expected = {name: k[3] for name, k in KERNELS.items()}
     launches, step, err = drive_train("pretrain-v2 f32", model, opt, sched, batch,
                                                wrappers, expected)
@@ -1650,11 +1779,10 @@ def flagship_chain_phase(dev, wrappers, pretrain):
     a v1 flagship drops `depth_net` whole and loads the other three. Then
     resume: `state_latest` saved, restored into a model, optimizer and
     scheduler made afresh; parameters, buffers, Adam's moments and the
-    scheduler equal the saved ones bit for bit, and the next step's loss
-    equals the uninterrupted run's bit for bit, its gradients upstream of
-    the kernels within phase 6's limits (the deformable backward's dv
-    atomics add in varying order, ROADMAP fault 2). Returns (launches of the
-    train step, failure message or None)."""
+    scheduler equal the saved ones bit for bit, and the next step's loss,
+    gradients, weights and Adam moments equal the uninterrupted run's bit
+    for bit. Returns (launches of the train step, failure message or
+    None)."""
     import shutil
 
     import torch
@@ -1747,10 +1875,14 @@ def flagship_chain_phase(dev, wrappers, pretrain):
               f"{float(m_b['loss']):.9g}: bit for bit {same_loss}")
         if not same_loss:
             return launches, "the resumed step's loss differs from the uninterrupted run's"
-        bad = check_grads("9c resumed vs uninterrupted", fresh, model, upstream_leaves(model),
-                          GRAD_TOL_LINEAR)
-        if bad:
-            return launches, f"the resumed step's gradients differ on {bad}"
+        want = step_leaves(model, opt, m_a)
+        got = step_leaves(fresh, f_opt, m_b)
+        differ = [n for n in want if n not in got or not torch_equal(want[n], got[n])]
+        print(f"9c the resumed step's gradients, weights and Adam moments against the "
+              f"uninterrupted run's ({len(want)} tensors): bit for bit {not differ}"
+              + (f"; {len(differ)} differ, first {differ[0]}" if differ else ""))
+        if differ:
+            return launches, f"the resumed step differs from the uninterrupted run's at {differ[0]}"
         return launches, None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2566,12 +2698,14 @@ def _full_weights(model):
             for n, p in model.named_parameters()}
 
 
-def _grad_spread(got, want):
-    """The worst norm of difference / norm over the leaves whose gradient
-    is not zero in exact arithmetic (more than 1e-4 of the largest max)."""
-    top = max(float(g.abs().max()) for g in want.values())
-    return max((float((got[n] - g).norm() / g.norm()) for n, g in want.items()
-                if float(g.abs().max()) > 1e-4 * top), default=0.0)
+def _step_differs(run, want):
+    """The leaves of two phase-12 runs (loss, gradients, weights) that are
+    not bit for bit equal, in order; empty when the runs are equal."""
+    (loss, grads, weights), (loss0, grads0, weights0) = run, want
+    out = [] if torch_equal(loss, loss0) else ["loss"]
+    out += [f"grad {n}" for n, g in grads0.items() if n not in grads or not torch_equal(grads[n], g)]
+    return out + [f"weight {n}" for n, w in weights0.items() if not torch_equal(weights[n], w)]
+
 
 
 BN_TOL = 1e-5  # _GlobalBatchNorm against float64, norm of difference / norm
@@ -2629,17 +2763,16 @@ def dist_phase(dev, wrappers):
     B=8, clip 10, two groups; a constant rate of 1e-4, so that the first
     Adam step moves the weights) with dropout off, from the same weights.
     First as one process, before any group exists: the step (its batch
-    norms' input shapes recorded), the same step again (the control: the
-    deformable backward's dv atomics add in varying order, ROADMAP fault
-    2), and `cli._evaluate` over two batches of 8. Then in an NCCL group of
+    norms' input shapes recorded), the same step again (the control, which
+    must be bit for bit the same), and `cli._evaluate` over two batches of
+    8. Then in an NCCL group of
     one rank joined by `parallel/multihost.py` (a file store under build/),
     where the loss normalisers' and the metrics' all-reduces, the
     replicated model's bucketed gradient all-reduce and the evaluation's
     all-gathers run as collectives of one rank: the step replicated
     (`shard_state(..., "replicate")`) and under FSDP2 (`shard_state(...,
-    "fsdp")`). Each: the loss bit for bit, the gradients within
-    PIN_GRAD_TOL (worst leaf, norm of difference / norm) with the control's
-    spread beside, the weights after the step beside the control's;
+    "fsdp")`). Each: the loss, the gradients and the weights after the
+    step bit for bit (the first differing leaf named);
     launches of kernels 1, 2, 3 and 3b (counts set to 0 before its first
     step); no cudaStreamSynchronize or cudaMemcpy in a step; the step's
     median ms of 5 beside the one process's. 12a: the global batch norm,
@@ -2737,29 +2870,26 @@ def dist_phase(dev, wrappers):
         mesh = make_mesh(cfg, "cuda")
         train("replicated", "replicate", mesh)
         train("fsdp", "fsdp", mesh)
-        loss0, grads0, weights0 = runs["unwrapped"]
-        ctl_grad = _grad_spread(runs["control"][1], grads0)
-        ctl_w = max(float((runs["control"][2][n] - w).abs().max()) for n, w in weights0.items())
+        loss0 = runs["unwrapped"][0]
+        differ = {label: _step_differs(runs[label], runs["unwrapped"])
+                  for label in ("control", "replicated", "fsdp")}
         print(f"12 one process f32 B={DIST_B} step: loss {float(loss0):.9g}, median "
-              f"{times['unwrapped']:.3f} ms; control (the same step again): loss bit for bit "
-              f"{bool(torch.equal(runs['control'][0], loss0))}, gradients' worst norm of "
-              f"difference / norm {ctl_grad:.3e}, weights' max abs diff {ctl_w:.3e}")
+              f"{times['unwrapped']:.3f} ms; control (the same step again): loss, gradients and "
+              f"weights bit for bit {not differ['control']}"
+              + (f", first differing {differ['control'][0]}" if differ["control"] else ""))
+        if differ["control"]:
+            return launches, f"12: the same step run twice differs at {differ['control'][0]}"
         for label in ("replicated", "fsdp"):
-            loss, grads, weights = runs[label]
-            same_loss = bool(torch.equal(loss, loss0))
-            spread = _grad_spread(grads, grads0)
-            wdiff = max(float((weights[n] - w).abs().max()) for n, w in weights0.items())
             got = {n: launches[label][n] for n in DIST_TRAIN}
-            print(f"12 {label} step: loss {float(loss):.9g} bit for bit {same_loss}; gradients' "
-                  f"worst norm of difference / norm {spread:.3e} (tol {PIN_GRAD_TOL}; control "
-                  f"{ctl_grad:.3e}); weights' max abs diff {wdiff:.3e} (control {ctl_w:.3e}); "
-                  f"launches {json.dumps(got)}; host syncs in a step {json.dumps(syncs[label])}; "
-                  f"median {times[label]:.3f} ms of 5 against {times['unwrapped']:.3f} one process "
+            print(f"12 {label} step: loss {float(runs[label][0]):.9g}; loss, gradients and "
+                  f"weights bit for bit {not differ[label]}"
+                  + (f" (first differing {differ[label][0]})" if differ[label] else "")
+                  + f"; launches {json.dumps(got)}; host syncs in a step "
+                  f"{json.dumps(syncs[label])}; median {times[label]:.3f} ms of 5 against "
+                  f"{times['unwrapped']:.3f} one process "
                   f"({times[label] - times['unwrapped']:+.3f} ms)")
-            if not same_loss:
-                return launches, f"12: the {label} step's loss differs from the one process's"
-            if not spread <= PIN_GRAD_TOL:
-                return launches, f"12: the {label} step's gradients differ: {spread:.3e}"
+            if differ[label]:
+                return launches, f"12: the {label} step differs at {differ[label][0]}"
             if not all(got.values()):
                 return launches, f"12: the {label} step launched no {[n for n, c in got.items() if not c]}"
             if syncs[label]["cudaStreamSynchronize"] or syncs[label]["cudaMemcpy"]:
@@ -3011,8 +3141,7 @@ def main() -> int:
     # ---- 5. the flagship train step at full width, train-v2, B=8, bfloat16
     torch.cuda.empty_cache()
     try:
-        model, opt, sched = train_setup(dev, "bfloat16")
-        batch = train_batch(dev, TRAIN_B, seed=5)
+        model, opt, sched, batch = train_path(dev, "flagship bf16")
         train_launches, _, err = drive_train("flagship bf16", model, opt, sched, batch,
                                                 wrappers, {n: k[3] for n, k in KERNELS.items()})
     except torch.cuda.OutOfMemoryError:
@@ -3087,16 +3216,15 @@ def main() -> int:
               f"diff / norm (tol {GRAD_NORM_TOL}), {wn_cpu:.3e} and {wn_ctl:.3e}")
     if bad:
         return _fail(f"GPU and CPU gradients disagree on {bad}")
+    off_grads = {n: p.grad for n, p in off_model.named_parameters()}
     for label, m, model in (("torch's defaults", m_gpu, gpu_model),
                             ("matmul 'high'", m_high, high_model)):
-        diffs = grad_diffs(model, off_model, upstream)
-        top_off = max(d[2] for d in diffs.values())
-        worst = max(d[1] for d in diffs.values() if d[2] > 1e-4 * top_off)
         same = bool(torch.equal(m["loss"], m_off["loss"]))
+        differ = [n for n, p in model.named_parameters() if not torch.equal(p.grad, off_grads[n])]
         print(f"card f32 train step under {label} against TF32 turned off by the caller: loss "
-              f"bit for bit {same}; worst norm of diff / norm over the leaves upstream "
-              f"{worst:.3e} (tol {PIN_GRAD_TOL})")
-        if not (same and worst <= PIN_GRAD_TOL):
+              f"bit for bit {same}; gradients bit for bit {not differ} ({len(off_grads)} leaves"
+              + (f", {len(differ)} differ, first {differ[0]})" if differ else ")"))
+        if not same or differ:
             return _fail(f"the train step under {label} differs from the one with TF32 turned "
                          "off by the caller: it does not pin full float32")
 
@@ -3201,6 +3329,7 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             composite_ms=row.get("composite_ms"),
+            **({"parts_ms": row["parts_ms"]} if "parts_ms" in row else {}),
         ))
     # Stack A's lift-splat at C=64: the float32 B=6 rows (the CLI's default
     # precision and train's batch); launches from phases 7 (forward) and 8

@@ -1,5 +1,5 @@
 // Shared pieces of the port's hand-written kernels: the block size of the
-// deformable and lift-splat kernels, conversion to float, warp sums, 16-byte
+// deformable and lift-splat kernels, key widths, conversion to float, warp sums, 16-byte
 // loads of bf16 or float rows and the C error helper.
 //
 // Every kernel has a float and a bfloat16 instantiation. The tile kernels
@@ -15,10 +15,25 @@ namespace lss {
 
 constexpr int kThreads = 256;  // the deformable and lift-splat kernels' blocks: 8 warps
 
+// Bits that hold the values 0 .. v (at least 0 bits, for v = 0).
+inline int bits_for(int v) {
+  int bits = 0;
+  while (bits < 31 && (v >> bits) != 0) ++bits;
+  return bits;
+}
+
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// The lanes of this thread's group of 2^glog consecutive lanes within its
+// warp, for the group's shuffles.
+__device__ __forceinline__ unsigned group_mask(int glog) {
+  if (glog == 5) return 0xffffffffu;
+  const unsigned lanes = (1u << (1 << glog)) - 1u;
+  return lanes << ((threadIdx.x & 31) & ~((1 << glog) - 1));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

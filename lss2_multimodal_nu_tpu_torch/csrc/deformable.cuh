@@ -61,31 +61,43 @@ __device__ __forceinline__ Lane lane_of(const Layout& l, int n, int w) {
   return me;
 }
 
-// Bilinear geometry of one sample (align_corners=False, zero padding): the
+// Bilinear geometry of one sample (align_corners=False, zero padding):
+// fx = lx*w - 0.5, x0 = floor(fx), wx = fx - x0 (and the same for y), the
 // map row of corner 00 and which of the corners 00, 01, 10, 11 lie inside.
+// The one place where a location becomes a cell and weights: the forward,
+// and the backward's key kernel, dv passes and query pass all call it, so
+// that the cell a point is sorted under and the corner weights it adds with
+// agree to the bit. fx is one fused multiply-add, written out, so that no
+// call site depends on what the compiler contracts.
 struct Sample {
   float wx, wy;
+  int x0, y0;
   int row;
   bool in[4];
 };
 
 __device__ __forceinline__ Sample sample(float lx, float ly, int h, int w) {
-  const float fx = lx * w - 0.5f, fy = ly * h - 0.5f;
+  const float fx = __fmaf_rn(lx, (float)w, -0.5f), fy = __fmaf_rn(ly, (float)h, -0.5f);
   const float x0f = floorf(fx), y0f = floorf(fy);
   Sample s;
   s.wx = fx - x0f;
   s.wy = fy - y0f;
-  const int x0 = (int)x0f, y0 = (int)y0f;
-  s.row = y0 * w + x0;
-  const bool x_in[2] = {x0 >= 0 && x0 < w, x0 + 1 >= 0 && x0 + 1 < w};
-  const bool y_in[2] = {y0 >= 0 && y0 < h, y0 + 1 >= 0 && y0 + 1 < h};
+  s.x0 = (int)x0f;
+  s.y0 = (int)y0f;
+  s.row = s.y0 * w + s.x0;
+  const bool x_in[2] = {s.x0 >= 0 && s.x0 < w, s.x0 + 1 >= 0 && s.x0 + 1 < w};
+  const bool y_in[2] = {s.y0 >= 0 && s.y0 < h, s.y0 + 1 >= 0 && s.y0 + 1 < h};
 #pragma unroll
   for (int k = 0; k < 4; ++k) s.in[k] = y_in[k >> 1] && x_in[k & 1];
   return s;
 }
 
+__device__ __forceinline__ float corner_weight(float wx, float wy, int k) {
+  return ((k >> 1) ? wy : 1.f - wy) * ((k & 1) ? wx : 1.f - wx);
+}
+
 __device__ __forceinline__ float corner_weight(const Sample& s, int k) {
-  return ((k >> 1) ? s.wy : 1.f - s.wy) * ((k & 1) ? s.wx : 1.f - s.wx);
+  return corner_weight(s.wx, s.wy, k);
 }
 
 // Map-row offset of corner k from corner 00.

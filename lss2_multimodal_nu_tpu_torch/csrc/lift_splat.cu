@@ -18,7 +18,7 @@
 // 0.0198 ms at 3.35 TB/s; the output is 93% of it. So the design writes each output row exactly once, in feat's dtype,
 // and touches nothing else of that size: no float32 accumulator to zero, no
 // cast pass, no atomics in L2. First the points are sorted by key (row <<
-// bbits | b; `build_csr`, a stable sort on the device with no host sync).
+// bbits | b; `csr.cuh::build_csr`, a stable sort on the device with no host sync).
 // Then one kernel does two kinds of work side by side (`lift_splat_kernel`):
 // only 2608 of the 240000 rows have points at the flagship's B=6 (16 on
 // average, 75 at most), and their sums are chains of dependent loads, while
@@ -31,94 +31,14 @@
 // The stable sort fixes the order of every sum, so the output repeats bit
 // for bit (the TPU kernel's sequential sum does too). The TPU version's
 // VMEM accumulator and its stripes have no counterpart.
-#include <cub/device/device_radix_sort.cuh>
-
+#include "csr.cuh"
 #include "lift_splat.cuh"
 
 namespace {
 
 using namespace lss::splat;
 using lss::kThreads;
-
-// ---- index preparation: a CSR of the points by row (`lift_splat.cuh`).
-//
-// key[i] of point i = b * P + p: (row[i] << bbits) | b for a live point
-// (weight[i] != 0, or every point without weights), (n_rows << bbits) | b
-// for any other, which sorts after every row; id[i] = i.
-__global__ void __launch_bounds__(kThreads)
-    keys_kernel(const float* __restrict__ weight, const int* __restrict__ row,
-                unsigned* __restrict__ key, int* __restrict__ id, int p, int n_rows, int bbits,
-                int total) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const bool live = weight == nullptr || weight[i] != 0.f;
-  const int r = row[i];
-  if (live && (unsigned)r >= (unsigned)n_rows) __trap();
-  key[i] = ((unsigned)(live ? r : n_rows) << bbits) | (unsigned)(i / p);
-  id[i] = i;
-}
-
-// rowptr[k] = the first sorted position whose key is k or more, for k in
-// [0, keys]: a binary search per entry over the n sorted keys.
-__global__ void __launch_bounds__(kThreads)
-    rowptr_kernel(const unsigned* __restrict__ key, int n, int* __restrict__ rowptr, int keys) {
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v > keys) return;
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (key[mid] < (unsigned)v) lo = mid + 1;
-    else hi = mid;
-  }
-  rowptr[v] = lo;
-}
-
-inline size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
-
-// Scratch of the index preparation for n points: the keys, the ids, the
-// sorted keys, then CUB's own storage.
-inline size_t scratch_head(int n) { return 3 * align256((size_t)n * 4); }
-
-size_t sort_temp_bytes(int n, int n_rows, int bbits) {
-  size_t temp = 0;
-  cub::DeviceRadixSort::SortPairs(nullptr, temp, (const unsigned*)nullptr, (unsigned*)nullptr,
-                                  (const int*)nullptr, (int*)nullptr, n, bbits,
-                                  bbits + bits_for(n_rows));
-  return temp;
-}
-
-// The CSR of the (B, P) points by row into order (B*P) and rowptr
-// ((n_rows << bbits) + 1), through `scratch` (scratch_head(B*P) bytes, then
-// the sort's storage). The sort is CUB's stable radix sort over the row
-// field alone, bits [bbits, bbits + bits_for(n_rows)) of the key: 16 bits,
-// two passes, at the flagship's 40000 voxels. The points arrive ordered by
-// b, then p, and the sort is stable, so it orders them by the whole key
-// (row, b) and, within a key, by p. `sorted_keys`, if given, receives the
-// sorted keys (in the scratch).
-cudaError_t build_csr(const float* weight, const int* row, void* scratch, size_t scratch_bytes,
-                      int* order, int* rowptr, int b, int p, int n_rows, cudaStream_t st,
-                      const unsigned** sorted_keys = nullptr) {
-  const int total = b * p, bbits = bits_for(b - 1), keys = n_rows << bbits;
-  const size_t part = align256((size_t)total * 4), head = scratch_head(total);
-  if (scratch_bytes < head) return cudaErrorInvalidValue;
-  char* base = (char*)scratch;
-  unsigned* key = (unsigned*)base;
-  int* id = (int*)(base + part);
-  unsigned* sorted = (unsigned*)(base + 2 * part);
-  if (sorted_keys != nullptr) *sorted_keys = sorted;
-  if (total > 0) {
-    keys_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(weight, row, key, id, p,
-                                                                         n_rows, bbits, total);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    size_t temp = scratch_bytes - head;
-    e = cub::DeviceRadixSort::SortPairs(base + head, temp, key, sorted, id, order, total, bbits,
-                                        bbits + bits_for(n_rows), st);
-    if (e != cudaSuccess) return e;
-  }
-  rowptr_kernel<<<keys / kThreads + 1, kThreads, 0, st>>>(sorted, total, rowptr, keys);
-  return cudaGetLastError();
-}
+using lss::csr::align256;
 
 // The CSR key of output row (b, v), row = b * n_voxels + v.
 __device__ __forceinline__ int row_key(int row, int n_voxels, int bbits) {
@@ -271,10 +191,10 @@ int forward(const void* feat, const void* depth, const void* seg, const void* fi
   int* order = (int*)scratch;
   int* rowptr = (int*)((char*)scratch + order_bytes);
   const unsigned* sorted = nullptr;
-  cudaError_t e = build_csr((const float*)depth, (const int*)seg,
-                            (char*)scratch + order_bytes + rowptr_bytes,
-                            (size_t)scratch_bytes - order_bytes - rowptr_bytes, order, rowptr, b,
-                            p, n_voxels, st, &sorted);
+  cudaError_t e = lss::csr::build_csr(
+      (const float*)depth, (const int*)seg, (char*)scratch + order_bytes + rowptr_bytes,
+      (size_t)scratch_bytes - order_bytes - rowptr_bytes, order, rowptr, b, p, n_voxels, st,
+      &sorted);
   if (e != cudaSuccess) return (int)e;
   const long long threads = (long long)rows << grp.glog;
   if (threads == 0) return 0;
@@ -300,18 +220,19 @@ int forward(const void* feat, const void* depth, const void* seg, const void* fi
 // `forward`, the forward's (order and rowptr inside it).
 extern "C" long long lift_splat_scratch(int b, int p, int n_rows, int forward) {
   const int n = b * p, bbits = bits_for(b - 1);
-  size_t bytes = scratch_head(n) + sort_temp_bytes(n, n_rows, bbits);
+  size_t bytes = lss::csr::build_csr_bytes(b, p, n_rows);
   if (forward) bytes += align256((size_t)n * 4) + align256(((size_t)(n_rows << bbits) + 1) * 4);
   return (long long)bytes;
 }
 
-// The CSR of the (B, P) points by row (`build_csr`); weight may be null
+// The CSR of the (B, P) points by row (`csr.cuh::build_csr`); weight may be null
 // (every point live).
 extern "C" int lift_splat_sort(const void* weight, const void* row, void* scratch,
                                long long scratch_bytes, void* order, void* rowptr, int b, int p,
                                int n_rows, void* stream) {
-  return (int)build_csr((const float*)weight, (const int*)row, scratch, (size_t)scratch_bytes,
-                        (int*)order, (int*)rowptr, b, p, n_rows, (cudaStream_t)stream);
+  return (int)lss::csr::build_csr((const float*)weight, (const int*)row, scratch,
+                                  (size_t)scratch_bytes, (int*)order, (int*)rowptr, b, p, n_rows,
+                                  (cudaStream_t)stream);
 }
 
 // The forward: the CSR of the points by voxel, then the kernel.

@@ -6,7 +6,7 @@
 // a run of a sorted point list, from `ptr[key]` to `ptr[key + 1]` with key =
 // (r << bbits) | b (bbits = bits_for(B - 1)), and `order[k]` is the point
 // (b * P + p) at sorted position k. A stable sort builds it
-// (`lift_splat.cu::build_csr`), so a row's points keep point order and every
+// (`csr.cuh::build_csr`), so a row's points keep point order and every
 // sum runs in one fixed order: no float atomics, each output row written
 // once, and the result repeats bit for bit from run to run.
 //
@@ -25,12 +25,7 @@ namespace splat {
 constexpr int kInFlight = 4;  // points whose 16-byte gathers a lane issues together
 constexpr int kMaxSlices = 4; // slices a lane may own (K)
 
-// Bits that hold the values 0 .. v (at least 0 bits, for v = 0).
-inline int bits_for(int v) {
-  int bits = 0;
-  while (bits < 31 && (v >> bits) != 0) ++bits;
-  return bits;
-}
+using ::lss::bits_for;
 
 struct Group {
   int slices;  // 16-byte slices in a row
@@ -52,12 +47,7 @@ inline int per_lane(const Group& g) {
   return k <= 1 ? 1 : (k <= 2 ? 2 : 4);
 }
 
-// The lanes of this thread's group within its warp.
-__device__ __forceinline__ unsigned group_mask(int glog) {
-  if (glog == 5) return 0xffffffffu;
-  const unsigned lanes = (1u << (1 << glog)) - 1u;
-  return lanes << ((threadIdx.x & 31) & ~((1 << glog) - 1));
-}
+using ::lss::group_mask;
 
 // Sum over the group's lanes in a fixed order; every lane gets the sum.
 __device__ __forceinline__ float group_sum(float v, unsigned mask, int glog) {

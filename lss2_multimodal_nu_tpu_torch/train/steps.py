@@ -13,7 +13,10 @@ clip; Adam; one step of the schedule. Its metrics stay on the device
 (0-dim tensors), so a loop pays no host sync unless it reads them. Both
 steps run in full float32 precision whatever torch's TF32 flags say
 (`ops/_precision.py`): the backward's convolutions go through cuDNN too,
-outside the model's forward.
+outside the model's forward. A train step also holds cuDNN to deterministic
+algorithms (`ops/_precision.py::deterministic_cudnn`): with the port's
+kernels, which sum in fixed orders, a step on one card repeats bit for bit
+from the same state and batch (loss, gradients, weights, Adam's moments).
 
 In a group of more than one rank (`parallel/`), each rank runs its shard of
 the global batch: batch norm and the loss normalisers take the global
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..ops._precision import full_float32
+from ..ops._precision import deterministic_cudnn, full_float32
 from ..nn.layers import DropConnect
 from ..parallel import multihost
 from ..parallel.mesh import reduce_gradients
@@ -89,6 +92,7 @@ def train_without_dropout(model: torch.nn.Module) -> torch.nn.Module:
 
 
 @full_float32()
+@deterministic_cudnn()
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                scheduler: torch.optim.lr_scheduler.LRScheduler, batch: Batch,
                step: int, mark: Optional[Callable[[str], None]] = None

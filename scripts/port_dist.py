@@ -16,8 +16,8 @@ single-process code runs. Then three parts, each printed by rank 0:
    (the JAX package's `tests/test_dist.py` limits), and every leaf's
    gradient, gathered in full, within `dryrun.GRAD_TOL` (norm of
    difference / norm, `dryrun.grad_spread`), the one-card step run again
-   printed beside as the control (the deformable backward's atomics add in
-   varying order).
+   printed beside as the control (on one card a step repeats bit for bit:
+   its spread is 0; across cards NCCL's order of summation is not fixed).
 2. Scaling: a global batch of 32 (8 a card) on the (4, 1) mesh against one
    card at B=8: step ms (host-clock median of 10 after 3), samples/s, the
    scaling efficiency (samples/s over 4 times one card's), the step's

@@ -144,8 +144,8 @@ def test_voxel_indices_truncate_toward_zero():
 @pytest.mark.parametrize("align_corners", [False, True])
 @pytest.mark.parametrize("hw", [(4, 11), (8, 22), (3, 3)])
 def test_resize_bilinear_matches_jax(hw, align_corners):
-    """The port's resize is F.interpolate; JAX's is an interpolation matrix
-    product; both are float32 bilinear (1e-5 for rounding)."""
+    """Both resizes are the same two interpolation-matrix products, the
+    port's in PyTorch on NCHW, JAX's on NHWC; float32 (1e-5 for rounding)."""
     x = np.random.default_rng(1).normal(size=(2, 5, 4, 11)).astype(np.float32)
     got = resize_bilinear(T(x), hw, align_corners).numpy()
     want = np.asarray(j_resize_bilinear(jnp.asarray(x.transpose(0, 2, 3, 1)), hw, align_corners))

@@ -3,7 +3,9 @@ ragged shapes that the flagship's (all multiples of the kernels' tiles)
 never reach: partial query, row and pixel tiles, channel counts that are
 no multiple of a warp, non-square maps, and the deformable kernels at the
 edges of their query tiles and lane groups (and their refusal of a dh that
-is no multiple of 8). The float32 FFN tail and seg head, which run in three
+is no multiple of 8); the deformable backward also with every location in
+one cell and with the cotangent scaled by 2^-20 and 2^20, and bit for bit
+on repeat everywhere. The float32 FFN tail and seg head, which run in three
 TF32 passes, also at inputs of magnitude ~1e3 with weights whose TF32 lo
 parts are near their largest, where one pass would miss the tolerance, and
 their weights' split bit for bit against `ops/_tf32.py`. The lift-splat
@@ -19,7 +21,10 @@ draws, the C++ entropy decoder against the Python one, and the loader on the
 card against the CPU with no host sync in its device stage. Plus the whole
 flagship in float32 on the card against the CPU at a 30x30 BEV grid, in
 eval and for one train step with its gradients, with TF32 turned off by the
-caller and under torch's defaults; and Stack A's BevTxt at B=1 on the card
+caller and under torch's defaults, and its train step twice from one state,
+bit for bit; one flagship bf16 and one train-v2 f32 step at full width
+under `torch.use_deterministic_algorithms` (`scripts/port_determinism.py`),
+which must flag no operation; and Stack A's BevTxt at B=1 on the card
 against the CPU.
 
 Marked `cuda`; each test skips without a card. On the card, without JAX
@@ -129,27 +134,74 @@ def test_deformable_backward_ragged(dev, dtype, dh):
     """Kernel 2 on a 7x9 map with 63 queries (a partial block of 8), 5
     points, dh 32 and 48 (a second, partial pass of the lanes), many
     samples clamped to the edges. The tolerances of chip_smoke.py: dv 5e-5
-    (float32 atomics in a varying order) or 2^-6 (bfloat16, rounded once);
-    dlx, dly, dattn are float32 in both dtypes, 1e-4, for rc_01 - rc_00
-    cancels."""
+    (float32 sums in another order than the plain version's) or 2^-6
+    (bfloat16, rounded once); dlx, dly, dattn are float32 in both dtypes,
+    1e-4, for rc_01 - rc_00 cancels. A second call gives the same bits."""
     _, g, u = _rng_tensors(dev, 6)
     bh, h, w, npts = 3, 7, 9, 5
     v = g(bh, h * w, dh).to(dtype)
     cot = g(bh, h * w, dh).to(dtype)
     lx, ly = (torch.clamp(u(bh, npts, h * w) * 1.2 - 0.1, 0, 1) for _ in range(2))
     attn = torch.softmax(g(bh, npts, h * w), dim=1)
+    _check_backward_deform((v, lx, ly, attn), cot, h, w)
+
+
+def _check_backward_deform(args, cot, h, w):
+    """Kernel 2 on (v, lx, ly, attn) and the cotangent: one launch, each
+    output within its tolerance of the plain version's (those of
+    `test_deformable_backward_ragged`), and a second call bit for bit."""
     f = ds.deformable_sample_combine_xy_backward
     before = f.launches
-    got = f(v, lx, ly, attn, cot, h, w)
+    got = f(*args, cot, h, w)
+    again = f(*args, cot, h, w)
     torch.cuda.synchronize()
-    assert f.launches == before + 1
-    want = ds.deformable_sample_combine_xy_backward_plain(v, lx, ly, attn, cot, h, w)
-    tols = (5e-5 if dtype == torch.float32 else 2 ** -6, 1e-4, 1e-4, 1e-4)
-    for name, a, b, tol in zip(("dv", "dlx", "dly", "dattn"), got, want, tols):
+    assert f.launches == before + 2
+    want = ds.deformable_sample_combine_xy_backward_plain(*args, cot, h, w)
+    tols = (5e-5 if args[0].dtype == torch.float32 else 2 ** -6, 1e-4, 1e-4, 1e-4)
+    for name, a, b, tol, a2 in zip(("dv", "dlx", "dly", "dattn"), got, want, tols, again):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert bool(torch.isfinite(a).all()), name
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol * float(b.float().abs().max()), (name, err)
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hw,n", [((7, 9), 63), ((8, 8), 65), ((1, 1), 3)])
+def test_deformable_backward_one_cell(dev, dtype, hw, n):
+    """Kernel 2 with every location in one cell, so that the cell's bucket
+    (8 points x n queries, 24 to 520 of them) is longer than a lane group
+    walks alone (`ops/deformable_sampling.py::DV_CHUNK`) or not, and its
+    points go to four dv rows in pieces: within tolerance, bit for bit on
+    repeat, every other dv row zero."""
+    _, g, u = _rng_tensors(dev, 21)
+    (h, w), bh, npts, dh = hw, 3, 8, 32
+    v = g(bh, h * w, dh).to(dtype)
+    lx = (w // 2 + 0.5 + 0.02 + 0.96 * u(bh, npts, n)) / w
+    ly = (h // 3 + 0.5 + 0.02 + 0.96 * u(bh, npts, n)) / h
+    if h == 1:  # the one cell of a 1x1 map: corner 00 at (0, 0), the others outside
+        lx, ly = (0.5 + 0.02 + 0.96 * u(bh, npts, n)) / w, (0.5 + 0.02 + 0.96 * u(bh, npts, n)) / h
+    attn = torch.softmax(g(bh, npts, n), dim=1)
+    _check_backward_deform((v, lx, ly, attn), g(bh, n, dh).to(dtype), h, w)
+    dv = ds.deformable_sample_combine_xy_backward(v, lx, ly, attn, g(bh, n, dh).to(dtype), h, w)[0]
+    touched = {(h // 3 + dy) * w + w // 2 + dx for dy in (0, 1) for dx in (0, 1)
+               if h // 3 + dy < h and w // 2 + dx < w}
+    rest = [r for r in range(h * w) if r not in touched]
+    assert not rest or not bool(dv[:, rest].any())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scale", [2.0 ** -20, 2.0 ** 20])
+def test_deformable_backward_scaled_cotangent(dev, dtype, scale):
+    """dv keeps its tolerance with the cotangent scaled by 2^-20 and 2^20: it
+    is summed in float32, as the JAX kernel's is, with no rounding to a grid
+    set by the largest contribution (as integer fixed-point sums would)."""
+    _, g, u = _rng_tensors(dev, 22)
+    bh, h, w, npts, dh = 2, 9, 8, 8, 32
+    v = g(bh, h * w, dh).to(dtype)
+    lx, ly = (torch.clamp(u(bh, npts, h * w) * 1.2 - 0.1, 0, 1) for _ in range(2))
+    attn = torch.softmax(g(bh, npts, h * w), dim=1)
+    _check_backward_deform((v, lx, ly, attn), (g(bh, h * w, dh) * scale).to(dtype), h, w)
 
 
 def test_deformable_function_launches_both_kernels(dev):
@@ -224,39 +276,25 @@ def test_deformable_edges(dev, dtype, dh, npts, edge):
 @pytest.mark.parametrize("edge", list(DEFORM_EDGES))
 def test_deformable_backward_edges(dev, dtype, dh, npts, edge):
     """Kernel 2 at the cases of `test_deformable_edges`, each of its four
-    outputs at the tolerances of `test_deformable_backward_ragged`."""
+    outputs at the tolerances of `test_deformable_backward_ragged` and bit
+    for bit on repeat."""
     (h, w), args, cot = _deform_edge_inputs(dev, dtype, edge, npts, dh, 12)
-    f = ds.deformable_sample_combine_xy_backward
-    before = f.launches
-    got = f(*args, cot, h, w)
-    torch.cuda.synchronize()
-    assert f.launches == before + 1
-    want = ds.deformable_sample_combine_xy_backward_plain(*args, cot, h, w)
-    tols = (5e-5 if dtype == torch.float32 else 2 ** -6, 1e-4, 1e-4, 1e-4)
-    for name, a, b, tol in zip(("dv", "dlx", "dly", "dattn"), got, want, tols):
-        assert a.dtype == b.dtype and a.shape == b.shape, name
-        assert bool(torch.isfinite(a).all()), name
-        err = float((a.float() - b.float()).abs().max())
-        assert err <= tol * float(b.float().abs().max()), (name, err)
+    _check_backward_deform(args, cot, h, w)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("npts", [5, 8])
 def test_deformable_rows_wider_than_a_warp(dev, dtype, npts):
     """dh=264: 33 slices of 16 bytes in bf16 and 66 in float32, more than
-    a warp's 32 lanes, so each lane serves a query in 2 or 3 passes. Both
-    kernels against their plain versions at the tolerances above."""
+    a warp's 32 lanes, so each lane serves a query (or a dv row) in 2 or 3
+    passes. Both kernels against their plain versions at the tolerances
+    above, the backward bit for bit on repeat."""
     (h, w), args, cot = _deform_edge_inputs(dev, dtype, "tile_plus_1", npts, 264, 14)
     f = ds.deformable_sample_combine_xy
     bf = dtype == torch.bfloat16
     _check(lambda: f(*args, h, w), lambda: ds.deformable_sample_combine_xy_plain(*args, h, w),
            2 ** -7 if bf else 1e-5, f)
-    got = ds.deformable_sample_combine_xy_backward(*args, cot, h, w)
-    want = ds.deformable_sample_combine_xy_backward_plain(*args, cot, h, w)
-    for name, a, b, tol in zip(("dv", "dlx", "dly", "dattn"), got, want,
-                               (2 ** -6 if bf else 5e-5, 1e-4, 1e-4, 1e-4)):
-        err = float((a.float() - b.float()).abs().max())
-        assert err <= tol * float(b.float().abs().max()), (name, err)
+    _check_backward_deform(args, cot, h, w)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -645,11 +683,11 @@ def test_train_step_card_matches_cpu(request, flags):
     in tests/test_torch_train.py. The yardstick is printed beside it: the
     card against itself from weights moved by 1e-7. Once with TF32 turned
     off by the caller, once under torch's defaults with matrix products at
-    "high": the train step pins full float32 itself, its backward too, so
-    there it also gives the loss of the step with TF32 turned off by the
-    caller bit for bit, and each gradient within 1e-4 in norm (the
-    deformable backward's atomics add in varying order: 1.6e-6 at full size;
-    unpinned, 0.47; `chip_smoke.py::PIN_GRAD_TOL`)."""
+    "high": the train step pins full float32 itself, its backward too, and
+    sums in fixed orders, so there it also gives the loss and every
+    gradient of the step with TF32 turned off by the caller bit for bit
+    (unpinned, the stem conv's gradient moved by 0.47 in norm at full
+    size)."""
     dev = _card(request, flags)
     cpu, card, other = _small_models(dev, moved=True)
     off = build_model(card.cfg, device=dev, seed=3)
@@ -691,8 +729,66 @@ def test_train_step_card_matches_cpu(request, flags):
             torch.backends.cudnn.allow_tf32 = old[0]
             torch.set_float32_matmul_precision(old[1])
         assert torch.equal(got["loss"], m_off["loss"])
-        pin = _relative_grad_diffs(card, off, top)
-        assert max(pin.values()) <= 1e-4, max(pin.items(), key=lambda kv: kv[1])
+        off_g = dict(off.named_parameters())
+        differ = [n for n, p in card.named_parameters() if not torch.equal(p.grad, off_g[n].grad)]
+        assert not differ, differ[:5]
+
+
+def test_train_step_repeats_bit_for_bit(dev_defaults):
+    """The 30x30-grid flagship's float32 train step, dropout on (seeded by
+    (seed, step)), run twice from one saved state on one batch under torch's
+    default flags: the loss, every gradient, every parameter and buffer
+    after the step and Adam's moments are the same bits (the deformable
+    backward sums dv in a fixed order, the resize is two products, cuDNN is
+    held to deterministic algorithms by the step)."""
+    import copy
+
+    dev = dev_defaults
+    _, card = _small_models(dev)
+    opt, sched = ts.build_optimizer(card.cfg, card.train())
+    args = _camera_args()
+    rng = np.random.default_rng(9)
+    batch = dict(zip(tsteps.MODEL_INPUTS, (a.to(dev) for a in args)),
+                 binimg=torch.from_numpy(rng.integers(0, 4, size=(2, 30, 30))).to(dev),
+                 act=torch.from_numpy((rng.random((2, 4)) < 0.4).astype(np.float32)).to(dev),
+                 desc=torch.from_numpy((rng.random((2, 8)) < 0.4).astype(np.float32)).to(dev))
+    tsteps.train_step(card, opt, sched, batch, 0)  # Adam's moments exist from here
+    saved = ({k: v.clone() for k, v in card.state_dict().items()},
+             copy.deepcopy(opt.state_dict()), copy.deepcopy(sched.state_dict()))
+    runs = []
+    for _ in range(2):
+        card.load_state_dict(saved[0])
+        opt.load_state_dict(copy.deepcopy(saved[1]))
+        sched.load_state_dict(saved[2])
+        m = tsteps.train_step(card, opt, sched, batch, 1)
+        leaves = {"loss": m["loss"].clone()}
+        leaves.update((f"grad {n}", p.grad.clone()) for n, p in card.named_parameters())
+        leaves.update((f"weight {n}", t.clone()) for n, t in card.state_dict().items())
+        leaves.update((f"{k} {i}", st[k].clone()) for i, st in enumerate(opt.state.values())
+                      for k in ("exp_avg", "exp_avg_sq"))
+        runs.append(leaves)
+    differ = [n for n, t in runs[0].items() if not torch.equal(t, runs[1][n])]
+    assert not differ, differ[:5]
+    assert any(n.startswith("exp_avg ") for n in runs[0])
+
+
+def test_train_steps_use_no_op_torch_knows_to_be_nondeterministic(dev):
+    """`scripts/port_determinism.py` in its own process (with
+    `CUBLAS_WORKSPACE_CONFIG` and `torch.use_deterministic_algorithms(True,
+    warn_only=True)` in a child of its own): one flagship bf16 step and one
+    train-v2 f32 step at B=8 at full width, and no operation torch flags."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, str(root / "scripts" / "port_determinism.py")],
+                         capture_output=True, text=True, timeout=900, cwd=root)
+    assert run.returncode == 0, (run.stdout[-2000:], run.stderr[-4000:])
+    result = json.loads(run.stdout.strip().splitlines()[-2])
+    assert result["flagged"] == 0 and set(result["paths"]) == {"flagship bf16",
+                                                               "train-v2 flagship f32"}
 
 
 def _c64_operands(dev, dtype, b, seed, live=True):
@@ -884,9 +980,9 @@ def test_train_seg_head_first_conv_runs_off_cudnn(dev, family):
 def test_bev_losses_repeat_bit_for_bit(dev):
     """The BEV cross entropies at a train step's size (B=12, 4 classes,
     200x200, a fifth of the labels at 255 for the pretrain's) give the same
-    bits on every call, their gradients too, where `F.cross_entropy`'s own
-    reduction adds with float atomics in a varying order; and they agree
-    with it to 1e-6 relative."""
+    bits on every call, their gradients too (the port sums them itself, in
+    a fixed order, where `F.cross_entropy`'s own reduction promises none);
+    and they agree with it to 1e-6 relative."""
     from lss2_multimodal_nu_tpu_torch.train import losses
 
     gen = torch.Generator(device=dev).manual_seed(10)
