@@ -171,6 +171,14 @@ ROOT = Path(__file__).resolve().parent
 # The float32 tensor-core kernels run each product as three TF32 passes.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
+# 32-bit integer operations, the data kernels' operations bound: on compute
+# capability 9.0 multiplies and multiply-adds issue to the FMA pipe, adds,
+# logic, shifts, compares and selects to the ALU pipe, each 64 lanes per SM
+# per clock (CUDA C programming guide), and an SM issues 128 lanes' worth
+# per clock at most (four warp schedulers); 132 SMs at the 1.98 GHz boost
+# clock
+INT32_PIPE_OPS_PER_S = 64 * 132 * 1.98e9
+INT32_ISSUE_OPS_PER_S = 128 * 132 * 1.98e9
 
 B, NCAM, IMG_H, IMG_W = 6, 6, 128, 352
 NH, DH, NPTS, GRID = 8, 32, 8, 200
@@ -346,7 +354,7 @@ def time_ms(fn, reps=20, warmup=3):
 # substrings of the port's own kernel names, as the profiler lists them
 PORT_KERNEL_NAMES = ("deform_sample", "lift_splat", "keys_kernel", "rowptr_kernel",
                      "DeviceRadixSortOnesweep", "ffn_ln", "conv3x3", "split_tf32",
-                     "idct_kernel", "color_kernel", "resize_h_kernel", "resize_v_kernel")
+                     "jpeg_decode_kernel", "resize_h_kernel", "resize_v_kernel")
 # host-side CUDA calls that make the host wait for the device
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaMemcpy", "cudaDeviceSynchronize")
 # substrings of the kernels of cuDNN's FFT convolutions (for one float32
@@ -1929,8 +1937,97 @@ def data_fixture(root):
           f"{time.perf_counter() - t0:.1f} s ({workers} processes)")
 
 
-def _bytes_ms(nbytes):
-    return nbytes / HBM_BYTES_PER_S * 1e3
+def int_ops_ms(ops):
+    """The least ms for integer operations by pipe ({"fma", "alu", "either"},
+    `ops/_build.py::INT_PIPES`): the busier of the FMA and ALU pipes, or all
+    of them at the issue rate, whichever is longer (an "either" operation
+    takes whichever pipe has room)."""
+    return max(ops["fma"] / INT32_PIPE_OPS_PER_S, ops["alu"] / INT32_PIPE_OPS_PER_S,
+               sum(ops.values()) / INT32_ISSUE_OPS_PER_S) * 1e3
+
+
+def data_bound(nbytes, ops):
+    """(bound ms, what binds): the larger of the bytes over HBM's rate and the
+    integer operations by pipe (`int_ops_ms`)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, int_ops_ms(ops)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def data_ops_per_unit(ops=None):
+    """The data kernels' integer operations by pipe per unit of work, counted
+    from the SASS of their probes in the build of `ops` (the port's `ops`
+    package by default; `ops/_build.py::sass_int_ops`): {"jpeg_idct":
+    {unit: {pipe: n}}, "img_aug": ...}, the units each module's PROBES."""
+    if ops is None:
+        from lss2_multimodal_nu_tpu_torch import ops
+    out = {}
+    for name in ("jpeg_idct", "img_aug"):
+        probes = getattr(ops, name).PROBES
+        counts = ops._build.sass_int_ops(name, [k for k, _ in probes.values()])
+        out[name] = {unit: {pipe: n / per for pipe, n in counts[k].items()}
+                     for unit, (k, per) in probes.items()}
+    return out
+
+
+def random_coefficients(rng, h, w, ncomp, sampling):
+    """A `Coefficients` of random quantised values (small, as real blocks
+    have them) with the standard tables at a random quality."""
+    import numpy as np
+
+    from lss2_multimodal_nu_tpu_torch.data import jpeg
+
+    qy, qc = jpeg.quality_tables(int(rng.integers(50, 101)))
+    hs, vs = sampling
+    mx, my = -(-w // (8 * hs)), -(-h // (8 * vs))
+    n = my * vs * mx * hs + (ncomp - 1) * mx * my
+    coefs = np.clip(np.round(rng.laplace(0, 3, (n, 64))), -200, 200).astype(np.int16)
+    coefs[:, 0] = rng.integers(-60, 60, n)
+    return jpeg.Coefficients(h, w, sampling, np.stack([qy, qc, qc][:ncomp]).astype(np.int32),
+                             coefs)
+
+
+# 10b's edge cases: kernel 6 at sizes off 16 and of 1-3 MCUs a side (4:2:0
+# chroma 1-2 wide), each a batch of 4:2:0, 4:4:4 and one-component images;
+# kernel 7 at (H, W, final_dim, rot_lim): windows of about 220 taps staged in
+# turns, upsampling, rotations to 40 degrees, a crop 600 wide
+JPEG_EDGES = ((1, 1), (3, 5), (4, 4), (4, 3), (16, 16), (17, 23), (33, 47), (48, 32))
+AUG_EDGES = ((900, 1600, (13, 29), None), (37, 61, (64, 128), None),
+             (90, 160, (32, 88), (-40.0, 40.0)), (200, 700, (40, 600), None))
+
+
+def data_edges(dev):
+    """10b's edge cases on the card, each kernel against its plain version
+    bit for bit; returns the cases that differ."""
+    import numpy as np
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.config import AugConfig
+    from lss2_multimodal_nu_tpu_torch.core.augment import sample_augmentation
+    from lss2_multimodal_nu_tpu_torch.ops import img_aug, jpeg_idct
+
+    bad = []
+    kinds = [(3, (2, 2)), (3, (1, 1)), (1, (1, 1)), (3, (2, 2))]
+    for h, w in JPEG_EDGES:
+        rng = np.random.default_rng(h * 1000 + w)
+        packed = jpeg_idct.pack([random_coefficients(rng, h, w, *k) for k in kinds])
+        c, q, m = (torch.from_numpy(a).to(dev) for a in packed[:3])
+        got = jpeg_idct.decode(c, q, m, h, w)
+        if not torch.equal(got, jpeg_idct.decode_plain(c, q, m, h, w)):
+            bad.append(f"jpeg_idct {h}x{w}")
+    for h, w, final_dim, rot_lim in AUG_EDGES:
+        rng = np.random.default_rng(h + w)
+        conf = AugConfig(H=h, W=w, final_dim=final_dim, rand_flip=True,
+                         **({} if rot_lim is None else {"rot_lim": rot_lim}))
+        draws = [sample_augmentation(conf, i % 4 != 0, rng) for i in range(16)]
+        images = torch.from_numpy(rng.integers(0, 256, (16, h, w, 3), dtype=np.uint8)).to(dev)
+        tabs = img_aug.plan(draws, h, w, final_dim)
+        pt, ht, vt = (torch.from_numpy(a).to(dev) for a in tabs[:3])
+        got = img_aug.augment(images, pt, ht, vt, final_dim, tabs[3])
+        if not torch.equal(got, img_aug.augment_plain(images, pt, ht, vt, final_dim)):
+            bad.append(f"img_aug {h}x{w} -> {final_dim} rot_lim {rot_lim}")
+    print(f"10b edge cases: kernel 6 at {len(JPEG_EDGES)} sizes (4:2:0, 4:4:4, gray), kernel 7 "
+          f"in {len(AUG_EDGES)} configurations: bit for bit {not bad} {bad}")
+    return bad
 
 
 def data_pieces(dev, root):
@@ -1938,10 +2035,12 @@ def data_pieces(dev, root):
     batch (8 samples, 48 images). Kernel 6 against its plain version on 12
     fixture images; the C++ entropy decoder against the Python one on 2;
     kernel 7 against its plain version over 64 draws (zero-filled crops,
-    flips, both rotation signs, the eval path); one full-width item through
-    the CPU path (Python entropy decoder, plain IDCT, plain resampling)
-    against the card's. Returns (rows for the kernels line, failure or
-    None)."""
+    flips, both rotation signs, the eval path); the edge cases
+    (`data_edges`); one full-width item through the CPU path (Python
+    entropy decoder, plain IDCT, plain resampling) against the card's. The
+    bounds: each module's `bound` (bytes, integer operations), the
+    operations per unit from this build's SASS. Returns (rows for the
+    kernels line, failure or None)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1957,8 +2056,7 @@ def data_pieces(dev, root):
     coefs = [jpeg.decode_coefficients(d, library=True) for d in data]
     packed = jpeg_idct.pack(coefs)
     c, q, m = (torch.from_numpy(a).to(dev) for a in packed[:3])
-    mb = jpeg_idct.max_blocks(packed[2], packed[0].shape[0])
-    rgb = jpeg_idct.decode(c, q, m, *packed[3:], mb)
+    rgb = jpeg_idct.decode(c, q, m, *packed[3:])
     same6 = torch.equal(rgb, jpeg_idct.decode_plain(c, q, m, *packed[3:]))
     print(f"10b kernel 6 (jpeg_idct) on {len(data)} fixture images against its plain version: "
           f"bit for bit {same6}")
@@ -1982,6 +2080,7 @@ def data_pieces(dev, root):
     same7 = torch.equal(got7, img_aug.augment_plain(images, pt, ht, vt, conf.final_dim))
     print(f"10b kernel 7 (img_aug) over 64 draws ({cover}) against its plain version: bit for "
           f"bit {same7}")
+    edges = data_edges(dev)
 
     item_cpu = data_datasets(root, dev, True, "cpu")[5]
     item_card = data_datasets(root, dev, True)[5]
@@ -1989,7 +2088,8 @@ def data_pieces(dev, root):
         torch.equal(item_cpu[k], item_card[k].cpu()) for k in item_cpu)
     print(f"10b one full-width train item (6 cameras) through the CPU path against the card's: "
           f"bit for bit {same_item}; imgs {tuple(item_card['imgs'].shape)}")
-    if not (same6 and same_entropy and same7 and same_item and all(cover.values())):
+    if not (same6 and same_entropy and same7 and same_item and not edges
+            and all(cover.values())):
         return None, "phase 10b: a piece of the data slice differs from its plain version"
 
     # the kernels' numbers at train-v2's batch: 8 samples, 48 images
@@ -1998,8 +2098,7 @@ def data_pieces(dev, root):
     b6 = {k: hb["tensors"][k].to(dev) for k in ("coefs", "quant", "meta")}
     b7 = {k: hb["tensors"][k].to(dev) for k in ("params", "htab", "vtab")}
     n, ncam, h, w = hb["shape"]
-    dec = lambda: jpeg_idct.decode(b6["coefs"], b6["quant"], b6["meta"], h, w,  # noqa: E731
-                                   hb["max_blocks"])
+    dec = lambda: jpeg_idct.decode(b6["coefs"], b6["quant"], b6["meta"], h, w)  # noqa: E731
     rgb = dec()
     ms6 = time_ms(dec, reps=10)
     plain6 = time_ms(lambda: jpeg_idct.decode_plain(b6["coefs"], b6["quant"], b6["meta"], h, w),
@@ -2017,26 +2116,32 @@ def data_pieces(dev, root):
     lib7 = time_ms(lambda: F.interpolate(x, size=eval_hw, mode="bicubic", antialias=True),
                    reps=10)
     del x
-    # bounds: coefficients in, RGB out; the source windows read, float32 out
+    # bounds: each module's count of bytes and integer operations, with the
+    # operations per unit of this build
+    per = data_ops_per_unit()
     ht = {k: v.numpy() for k, v in hb["tensors"].items()}
-    nbytes = lambda *keys: sum(ht[k].nbytes for k in keys)  # noqa: E731
-    bytes6 = nbytes("coefs", "quant", "meta") + rgb.numel()
-    cols = [(int(t[t[:, 1] > 0, 0].min()), int((t[:, 0] + t[:, 1]).max())) if (t[:, 1] > 0).any()
-            else (0, 0) for t in ht["htab"]]
-    window = sum(int(r) * (c1 - c0) * 3 for r, (c0, c1) in zip(ht["params"][:, 13], cols))
-    bytes7 = (window + nbytes("params", "htab", "vtab")
-              + n * ncam * 3 * conf.final_dim[0] * conf.final_dim[1] * 4)
-    rows = {
-        "jpeg_idct": dict(max_abs_err=0.0, ms=ms6, plain_ms=plain6, bound_ms=_bytes_ms(bytes6),
-                          bound_by="bytes", library_ms=None),
-        "img_aug": dict(max_abs_err=0.0, ms=ms7, plain_ms=plain7, bound_ms=_bytes_ms(bytes7),
-                        bound_by="bytes", library_ms=lib7),
+    work = {
+        "jpeg_idct": jpeg_idct.bound(ht["meta"], ht["coefs"].shape[0], h, w, per["jpeg_idct"]),
+        "img_aug": img_aug.bound(ht["params"], ht["htab"], ht["vtab"], h, w, conf.final_dim,
+                                 per["img_aug"]),
     }
+    rows = {}
+    for name, ms, plain, lib in (("jpeg_idct", ms6, plain6, None), ("img_aug", ms7, plain7, lib7)):
+        nbytes, ops = work[name]
+        bound_ms, by = data_bound(nbytes, ops)
+        rows[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
+                          library_ms=lib, bytes=nbytes, int_ops=ops,
+                          bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                          ops_ms=int_ops_ms(ops), ops_per_unit=per[name])
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
         print(f"10b {name} at train-v2's batch ({n * ncam} images of {h}x{w}): {r['ms']:.4f} ms "
               f"(CUDA events, mean of 10), plain {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.4f} ms (bytes), library call {lib}")
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB "
+              f"{r['bytes_ms']:.4f} ms, integer operations by pipe "
+              f"{json.dumps({k: round(v) for k, v in r['int_ops'].items()})} {r['ops_ms']:.4f} "
+              f"ms; per unit {json.dumps(r['ops_per_unit'])}), share "
+              f"{r['bound_ms'] / r['ms']:.3f}, library call {lib}")
     return rows, None
 
 
@@ -2126,6 +2231,7 @@ def data_train(dev, root, wrappers):
     None)."""
     import torch
 
+    from lss2_multimodal_nu_tpu_torch.data.dataset import collate, device_stage
     from lss2_multimodal_nu_tpu_torch.data.loader import DataLoader
     from lss2_multimodal_nu_tpu_torch.models.factory import build_model
     from lss2_multimodal_nu_tpu_torch.train.state import build_optimizer
@@ -2173,6 +2279,15 @@ def data_train(dev, root, wrappers):
         busy, _, _, _ = device_profile(lambda: out.append(window(next_batch)))
         return busy, out[0][0]
 
+    # one batch's device stage, for its launches of each data kernel
+    ds = data_datasets(root, dev, True)
+    hb = collate([ds.host_item(i) for i in range(TRAIN_B)], ds.aug.final_dim)
+    for f in wrappers.values():
+        f.launches = 0
+    device_stage(hb, dev)
+    per_batch = {n: wrappers[n].launches for n in DATA_WRAPPERS}
+    print(f"10d launches of one batch's device stage: {per_batch}")
+
     loaded = lambda: next(it)  # noqa: E731
     train_step(model, opt, sched, next(it), step)
     step += 1
@@ -2184,13 +2299,14 @@ def data_train(dev, root, wrappers):
     print(f"10d loader-fed train-v2 flagship f32 B={TRAIN_B}, {LOADER_STEPS} steps: launches "
           f"{launches}; losses {[round(x, 5) for x in losses]}")
     want = {n: LOADER_STEPS * k[3] for n, k in KERNELS.items() if n not in DATA_WRAPPERS}
-    # the loader stages at most one batch ahead of the steps, two launches
-    # of each data kernel a batch
-    staged = range(2 * (LOADER_STEPS - 1), 2 * (LOADER_STEPS + 1) + 1)
-    if {n: launches[n] for n in want} != want or not all(launches[n] in staged
+    # the loader stages at most one batch ahead of the steps: each data
+    # kernel's launches of one batch's device stage, LOADER_STEPS +- 1 times
+    staged = {n: range(per_batch[n] * (LOADER_STEPS - 1), per_batch[n] * (LOADER_STEPS + 1) + 1,
+                       per_batch[n]) for n in DATA_WRAPPERS}
+    if {n: launches[n] for n in want} != want or not all(launches[n] in staged[n]
                                                         for n in DATA_WRAPPERS):
         return launches, f"loader-fed launch counts {launches}, expected {want} and " \
-                         f"{staged.start}-{staged.stop - 1} of each data kernel"
+                         f"{ {n: list(r) for n, r in staged.items()} } of the data kernels"
     if not all(math.isfinite(x) for x in losses) or max(losses) - min(losses) <= 1e-3:
         return launches, f"the loader-fed losses are wrong: {losses}"
     batch = next(it)

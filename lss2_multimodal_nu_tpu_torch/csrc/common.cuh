@@ -1,6 +1,7 @@
 // Shared pieces of the port's hand-written kernels: the block size of the
 // deformable and lift-splat kernels, key widths, conversion to float, warp sums, 16-byte
-// loads of bf16 or float rows and the C error helper.
+// loads of bf16 or float rows, asynchronous copies into shared memory and the C error
+// helper.
 //
 // Every kernel has a float and a bfloat16 instantiation. The tile kernels
 // (the FFN tail, the seg head) run on the tensor cores through wgmma
@@ -40,6 +41,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Asynchronous copies from global into shared memory (cp.async): 4 bytes
+// (through L1) or 16 bytes (L2 only), both addresses aligned to the size;
+// `cp_async_wait_all` commits the copies issued so far and waits for all.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::);
 }
 
 __device__ __forceinline__ uint4 ld16(const char* p) {

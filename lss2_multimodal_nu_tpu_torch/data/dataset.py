@@ -256,8 +256,7 @@ def collate(items: Sequence[dict], final_dim, pin: bool = False) -> dict:
         tensors = {k: v.pin_memory() for k, v in tensors.items()}
     tensors["coefs"] = coefs
     return dict(tensors=tensors, shape=(len(items), len(items[0]["jpeg"]), height, width),
-                rows=rows, max_blocks=jpeg_idct.max_blocks(meta, coefs.shape[0]),
-                final_dim=tuple(final_dim))
+                rows=rows, final_dim=tuple(final_dim))
 
 
 def device_stage(host: dict, device) -> Dict[str, torch.Tensor]:
@@ -267,7 +266,7 @@ def device_stage(host: dict, device) -> Dict[str, torch.Tensor]:
     is enqueued on the current stream; nothing waits for the card."""
     t = {k: v.to(device, non_blocking=True) for k, v in host["tensors"].items()}
     b, n, height, width = host["shape"]
-    rgb = jpeg_idct.decode(t["coefs"], t["quant"], t["meta"], height, width, host["max_blocks"])
+    rgb = jpeg_idct.decode(t["coefs"], t["quant"], t["meta"], height, width)
     imgs = img_aug.augment(rgb, t["params"], t["htab"], t["vtab"], host["final_dim"],
                            host["rows"])
     out = {"imgs": imgs.view(b, n, *imgs.shape[1:])}

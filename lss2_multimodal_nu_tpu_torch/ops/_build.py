@@ -19,6 +19,7 @@ launch. No CUTLASS header is used.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -152,6 +153,73 @@ def aligned(t):
     thread), copied if it is not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device (kernels size their
+    grids to it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# SASS opcodes (before the first '.') of 32-bit integer arithmetic, logic,
+# shifts, compares and selects, by the pipe that issues them on sm_90:
+# multiplies and multiply-adds to the FMA pipe, adds, logic, shifts,
+# compares, min/max, selects and byte permutes to the ALU pipe, each 64
+# lanes per SM per clock; the rest ("either") to a pipe not pinned here.
+# Of IMAD, IMAD.MOV is a move and not counted.
+INT_PIPES = {
+    "fma": frozenset({"IMAD", "IMUL", "IDP"}),
+    "alu": frozenset({"IADD", "IADD3", "LEA", "SHF", "SHL", "SHR", "LOP", "LOP3", "IMNMX",
+                      "IABS", "ISETP", "SEL", "PRMT", "BMSK", "SGXT"}),
+    "either": frozenset({"VIADD", "VIMNMX", "VIMNMX3", "VIADDMNMX", "FLO", "POPC", "BREV",
+                         "I2I", "I2IP"}),
+}
+
+
+def sass_int_ops(name: str, kernels) -> Dict[str, Dict[str, int]]:
+    """Integer instructions in the SASS of each of `kernels` (extern "C"
+    names) in the built library of `csrc/<name>.cu`, from `cuobjdump -sass`,
+    by pipe (`count_int_ops`)."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(BUILD_DIR / f"lib{name}.so")],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = count_int_ops(sass, kernels)
+    missing = [k for k in kernels if k not in counts]
+    if missing:
+        raise RuntimeError(f"no SASS for {missing} in lib{name}.so")
+    return counts
+
+
+def count_int_ops(sass: str, kernels) -> Dict[str, Dict[str, int]]:
+    """{kernel: {"fma": n, "alu": n, "either": n}}: the integer
+    instructions of each of `kernels` found in `cuobjdump -sass` text, by
+    INT_PIPES (loads, stores, moves, branches and float instructions are
+    not counted)."""
+    import re
+
+    pipe_of = {op: pipe for pipe, ops in INT_PIPES.items() for op in ops}
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            current = m.group(1) if m.group(1) in kernels else None
+            if current:
+                counts[current] = dict.fromkeys(INT_PIPES, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)(\.MOV\b)?",
+                     line)
+        if current and m and m.group(1) in pipe_of and not (m.group(1) == "IMAD" and m.group(2)):
+            counts[current][pipe_of[m.group(1)]] += 1
+    return counts
+
+
+def int_ops(units: Dict[str, float], per_unit: Dict[str, Dict[str, float]]) -> Dict[str, float]:
+    """Integer operations by pipe of `units` of work (count by unit) at
+    `per_unit` operations by pipe (as `sass_int_ops` gives them)."""
+    return {pipe: sum(n * per_unit[u][pipe] for u, n in units.items()) for pipe in INT_PIPES}
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -22,12 +22,16 @@ point), per output column and row of the crop, and `rotate`'s matrix as
 Pillow builds it (`round(cos, 15)`, `round(sin, 15)`) in its 16.16 fixed
 point (`affine_fixed`: the source coordinate of pixel (x, y) is
 (a2 + y a1 + x a0) >> 16, exact in integers).
+
+The kernel's two launches read every tap and weight from shared memory,
+each CTA staging the source columns or intermediate rows its pixels' windows
+span. `bound` counts the bytes and the integer operations of a batch.
 """
 from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,6 +162,49 @@ def plan(aug: Sequence, height: int, width: int, final_dim: Tuple[int, int]):
     return params, htab, vtab, int(params[:, 13].max())
 
 
+# The kernel's probes (`csrc/img_aug.cu`), whose SASS `ops/_build.py::
+# sass_int_ops` counts: a unit of work's probe and the units it runs. A tap
+# of either pass (three multiply-adds), a pixel of either pass (three sums
+# clipped), an output pixel's source through the rotation and the flip.
+PROBES = {"tap": ("ops_probe_tap", 1), "clip": ("ops_probe_clip", 1),
+          "source": ("ops_probe_source", 1)}
+
+
+def bound(params: np.ndarray, htab: np.ndarray, vtab: np.ndarray, height: int, width: int,
+          final_dim: Tuple[int, int],
+          ops: Dict[str, Dict[str, float]]) -> Tuple[int, Dict[str, float]]:
+    """(bytes, integer operations by pipe) the kernel must move and do for a
+    batch of (n, height, width, 3) images with `plan`'s tables: the source
+    windows the crops read (the intermediate rows by the columns their taps
+    span), the tables, the float32 output written once; `ops` by pipe per
+    unit of PROBES: a tap and a pixel of either pass (the live columns' taps
+    of every intermediate row, the inside pixels' taps), an output pixel's
+    source."""
+    fh, fw = final_dim
+    n = params.shape[0]
+    window = h_taps = h_pixels = v_taps = v_pixels = 0
+    y = np.arange(fh, dtype=np.int64)[:, None]
+    x = np.arange(fw, dtype=np.int64)[None, :]
+    for p, ht, vt in zip(params.tolist(), htab, vtab):
+        rows = p[13]
+        live = ht[:, 1] > 0
+        if rows and live.any():
+            window += rows * int((ht[live, 0] + ht[live, 1]).max() - ht[live, 0].min()) * 3
+            h_taps += rows * int(ht[:, 1].sum())
+            h_pixels += rows * int(live.sum())
+        ys, inside = np.broadcast_to(y, (fh, fw)), np.ones((fh, fw), bool)
+        if p[5]:
+            xs = (p[8] + y * p[7] + x * p[6]) >> 16
+            ys = (p[11] + y * p[10] + x * p[9]) >> 16
+            inside = (xs >= 0) & (xs < fw) & (ys >= 0) & (ys < fh)
+        counts = np.where(inside, vt[np.clip(ys, 0, fh - 1), 1], 0) if rows else 0 * inside
+        v_taps += int(counts.sum())
+        v_pixels += int((counts > 0).sum())
+    nbytes = (window + params.nbytes + htab.nbytes + vtab.nbytes + n * 3 * fh * fw * 4)
+    units = {"tap": h_taps + v_taps, "clip": h_pixels + v_pixels, "source": n * fh * fw}
+    return nbytes, _build.int_ops(units, ops)
+
+
 # ---- the plain version
 
 
@@ -245,9 +292,10 @@ def augment(images, params, htab, vtab, final_dim, max_rows: int) -> torch.Tenso
     Pillow and numpy do it.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (two launches: the horizontal pass into a uint8 scratch of (n, rows, fW,
-    3), then the rest). `max_rows`, `plan`'s most intermediate rows of an
-    image, sizes the scratch."""
+    (two launches: the horizontal pass into a scratch of (n, rows, fW
+    rounded up to 4) 32-bit words, then the rest; the first is skipped
+    where no image has a row to resample). `max_rows`, `plan`'s most
+    intermediate rows of an image, sizes the scratch."""
     if images.device.type == "cpu":
         return augment_plain(images, params, htab, vtab, final_dim)
     fh, fw = final_dim
@@ -260,7 +308,8 @@ def augment(images, params, htab, vtab, final_dim, max_rows: int) -> torch.Tenso
     _build.same_device(images, params, htab, vtab)
     images = images.contiguous()
     params, htab, vtab = (t.to(torch.int32).contiguous() for t in (params, htab, vtab))
-    scratch = torch.empty(n, max(max_rows, 1), fw, 3, dtype=torch.uint8, device=images.device)
+    scratch = torch.empty(n, max(max_rows, 1), -(-fw // 4) * 4, dtype=torch.int32,
+                          device=images.device)
     out = torch.empty(n, 3, fh, fw, dtype=torch.float32, device=images.device)
     with _build.on(images.device):
         code = _fn()(*map(_build.ptr, (images, params, htab, vtab, scratch, out)), n, height,

@@ -16,11 +16,18 @@ A batch is packed by `pack` from `data/jpeg.py::Coefficients`:
   meta (n, 4) int32: first block, components (1 or 3), sampling h, v.
 All images of a batch have one size; the output is (n, H, W, 3) uint8 (a
 one-component image gives R = G = B, as PIL's "L" does once stacked).
+
+The kernel is one launch: a CTA owns a strip of whole MCUs across and a band
+of MCU rows of one image, the tiles chosen by its C entry from the card's
+SMs, and decodes its blocks (with 4:2:0, the chroma one block row and column
+beyond its pixels on each side, for the upsampling) into shared memory
+before it writes its pixels. `bound` counts the bytes and the integer
+operations of a batch.
 """
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +69,29 @@ def _layout(ncomp: int, hs: int, vs: int, height: int, width: int):
         out.append((first, rows, cols, -(-height * v // vs), -(-width * h // hs)))
         first += rows * cols
     return out
+
+
+# The kernel's probes (`csrc/jpeg_idct.cu`), whose SASS `ops/_build.py::
+# sass_int_ops` counts: a unit of work's probe and the units it runs. A
+# block's dequantisation, two passes and range limit; a 4:2:0 pixel's
+# upsampling (both components) and colour; a 4:4:4 pixel's colour.
+PROBES = {"block": ("ops_probe_idct_block", 1), "pixel_420": ("ops_probe_pixels_420", 8),
+          "pixel_444": ("ops_probe_pixel_444", 1)}
+
+
+def bound(meta: np.ndarray, total_blocks: int, height: int, width: int,
+          ops: Dict[str, Dict[str, float]]) -> Tuple[int, Dict[str, float]]:
+    """(bytes, integer operations by pipe) the kernel must move and do for a
+    packed batch: the int16 coefficients, tables and meta read once, the RGB
+    written once; `ops` by pipe per unit of PROBES (a one-component image
+    converts no colour)."""
+    n = meta.shape[0]
+    nbytes = total_blocks * 64 * 2 + n * 3 * 64 * 4 + meta.nbytes + n * height * width * 3
+    kinds = [(c, h) for _, c, h, _ in meta.tolist()]
+    units = {"block": total_blocks,
+             "pixel_420": height * width * sum(k == (3, 2) for k in kinds),
+             "pixel_444": height * width * sum(c == 3 and h != 2 for c, h in kinds)}
+    return nbytes, _build.int_ops(units, ops)
 
 
 # ---- the plain version
@@ -153,7 +183,7 @@ def decode_plain(coefs, quant, meta, height: int, width: int) -> torch.Tensor:
 
 # ---- the kernel
 
-_ARGTYPES = [_build.P] * 5 + [_build.I] * 4 + [_build.P]
+_ARGTYPES = [_build.P] * 4 + [_build.I] * 4 + [_build.P]
 
 
 @lru_cache(maxsize=None)
@@ -161,14 +191,11 @@ def _fn():
     return _build.bind("jpeg_idct", "jpeg_idct_decode", _ARGTYPES)
 
 
-def decode(coefs, quant, meta, height: int, width: int, max_blocks: int) -> torch.Tensor:
+def decode(coefs, quant, meta, height: int, width: int) -> torch.Tensor:
     """(n, H, W, 3) uint8 RGB of a packed batch (see the module's doc).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel:
-    one thread per 8x8 block for the IDCT into a scratch of samples, then one
-    thread per pixel for the upsampling and the colour. `max_blocks`, the
-    most blocks of one image (`max_blocks(meta, blocks)` on the host), sizes
-    the first launch's grid."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    once, its tiles sized to the card's SMs."""
     if coefs.device.type == "cpu":
         return decode_plain(coefs, quant, meta, height, width)
     if coefs.device.type != "cuda" or coefs.dtype != torch.int16 or coefs.dim() != 2 \
@@ -182,21 +209,13 @@ def decode(coefs, quant, meta, height: int, width: int, max_blocks: int) -> torc
     coefs = _build.aligned(coefs)
     quant = quant.to(torch.int32).contiguous()
     meta = meta.to(torch.int32).contiguous()
-    samples = torch.empty(coefs.shape, dtype=torch.uint8, device=coefs.device)
     out = torch.empty(n, height, width, 3, dtype=torch.uint8, device=coefs.device)
     with _build.on(coefs.device):
-        code = _fn()(*map(_build.ptr, (coefs, quant, meta, samples, out)), n, height, width,
-                     max_blocks, _build.stream(coefs.device))
-    decode.launches += 2  # IDCT kernel, then upsampling + colour kernel
+        code = _fn()(*map(_build.ptr, (coefs, quant, meta, out)), n, height, width,
+                     _build.sm_count(coefs.device), _build.stream(coefs.device))
+    decode.launches += 1
     _build.check("jpeg_idct", code)
     return out
 
 
 decode.launches = 0
-
-
-def max_blocks(meta: np.ndarray, total: int) -> int:
-    """The most blocks of one image of a packed batch (host numpy)."""
-    first = np.append(meta[:, 0], total)
-    return int(np.diff(first).max())
-

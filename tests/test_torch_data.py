@@ -210,8 +210,7 @@ def test_fixture_jpegs_decode_as_pil_does(fixture_root):
             data = f.read()
         coefs = jpeg.decode_coefficients(data, library=False)
         packed = jpeg_idct.pack([coefs])
-        got = jpeg_idct.decode(*map(torch.from_numpy, packed[:3]), H, W,
-                               jpeg_idct.max_blocks(packed[2], len(packed[0])))[0]
+        got = jpeg_idct.decode(*map(torch.from_numpy, packed[:3]), H, W)[0]
         np.testing.assert_array_equal(got.numpy(), np.asarray(Image.open(path)), err_msg=path)
 
 
@@ -227,7 +226,7 @@ def _pil_jpeg(img, quality, subsampling):
 def _decode_plain(data):
     c = jpeg.decode_coefficients(data, library=False)
     return jpeg_idct.decode(*map(torch.from_numpy, jpeg_idct.pack([c])[:3]), c.height,
-                            c.width, len(c.coefs))[0].numpy()
+                            c.width)[0].numpy()
 
 
 @SETTINGS

@@ -1021,25 +1021,28 @@ def _random_coefficients(rng, h, w, ncomp, sampling):
     return jpeg.Coefficients(h, w, sampling, quant, coefs)
 
 
-@pytest.mark.parametrize("h, w", [(1, 1), (3, 5), (17, 23), (90, 160), (225, 400), (900, 1600)])
-def test_jpeg_idct_matches_plain(dev, h, w):
+@pytest.mark.parametrize("h, w, n", [(1, 1, 4), (3, 5, 4), (4, 4, 4), (4, 3, 4), (16, 16, 4),
+                                     (17, 23, 4), (33, 47, 4), (48, 32, 4), (90, 160, 4),
+                                     (225, 400, 4), (900, 1600, 4), (900, 1600, 56)])
+def test_jpeg_idct_matches_plain(dev, h, w, n):
     """Kernel 6 against its plain version on one batch mixing 4:2:0, 4:4:4
-    and one-component images, at odd sizes (partial MCUs, chroma 1-2 wide
-    where libjpeg replicates instead of the fancy upsampling)."""
+    and one-component images, at odd sizes (partial MCUs, widths and
+    heights of 1-3 MCUs, chroma 1-2 wide where libjpeg replicates instead
+    of the fancy upsampling); at 900x1600 with 4 images in bands of a few
+    MCU rows, with 56 in one band of the whole height."""
     from lss2_multimodal_nu_tpu_torch.ops import jpeg_idct
 
-    rng = np.random.default_rng(h * 1000 + w)
+    rng = np.random.default_rng(h * 1000 + w + n)
     kinds = [(3, (2, 2)), (3, (1, 1)), (1, (1, 1)), (3, (2, 2))]
-    images = [_random_coefficients(rng, h, w, n, s) for n, s in kinds]
+    images = [_random_coefficients(rng, h, w, *kinds[i % 4]) for i in range(n)]
     coefs, quant, meta, hh, ww = jpeg_idct.pack(images)
-    cpu = [torch.from_numpy(a) for a in (coefs, quant, meta)]
-    most = jpeg_idct.max_blocks(meta, coefs.shape[0])
-    want = jpeg_idct.decode(*cpu, hh, ww, most)
+    on_card = [torch.from_numpy(a).to(dev) for a in (coefs, quant, meta)]
+    want = jpeg_idct.decode_plain(*on_card, hh, ww)
     before = jpeg_idct.decode.launches
-    got = jpeg_idct.decode(*[t.to(dev) for t in cpu], hh, ww, most)
+    got = jpeg_idct.decode(*on_card, hh, ww)
     torch.cuda.synchronize()
-    assert jpeg_idct.decode.launches == before + 2
-    assert torch.equal(got.cpu(), want)
+    assert jpeg_idct.decode.launches == before + 1
+    assert torch.equal(got, want)
 
 
 def test_jpeg_idct_refuses_mixed_sizes_and_dtypes(dev):
@@ -1052,21 +1055,26 @@ def test_jpeg_idct_refuses_mixed_sizes_and_dtypes(dev):
     coefs, quant, meta, h, w = jpeg_idct.pack([_random_coefficients(rng, 16, 16, 3, (2, 2))])
     with pytest.raises(ValueError):
         jpeg_idct.decode(torch.from_numpy(coefs).to(dev).int(), torch.from_numpy(quant).to(dev),
-                         torch.from_numpy(meta).to(dev), h, w, 4)
+                         torch.from_numpy(meta).to(dev), h, w)
 
 
-@pytest.mark.parametrize("h, w, final_dim", [(225, 400, (32, 88)), (90, 160, (32, 88)),
-                                             (900, 1600, (128, 352)), (37, 61, (13, 29))])
-def test_img_aug_matches_plain(dev, h, w, final_dim):
+@pytest.mark.parametrize("h, w, final_dim, rot_lim", [
+    (225, 400, (32, 88), None), (90, 160, (32, 88), None), (900, 1600, (128, 352), None),
+    (37, 61, (13, 29), None), (900, 1600, (13, 29), None), (37, 61, (64, 128), None),
+    (90, 160, (32, 88), (-40.0, 40.0)), (200, 700, (40, 600), None)])
+def test_img_aug_matches_plain(dev, h, w, final_dim, rot_lim):
     """Kernel 7 against its plain version over 24 draws each: train draws
     with flips and rotations of both signs, crops past the resized image,
-    and eval draws (no rotation)."""
+    and eval draws (no rotation); eval windows of about 220 taps at
+    900x1600 -> 13x29 (the horizontal pass stages its span in turns),
+    upsampling, rotations to 40 degrees, a crop 600 wide."""
     from lss2_multimodal_nu_tpu_torch.config import AugConfig as TAug
     from lss2_multimodal_nu_tpu_torch.core.augment import sample_augmentation
     from lss2_multimodal_nu_tpu_torch.ops import img_aug
 
     rng = np.random.default_rng(h + w)
-    conf = TAug(H=h, W=w, final_dim=final_dim, rand_flip=True)
+    conf = TAug(H=h, W=w, final_dim=final_dim, rand_flip=True,
+                **({} if rot_lim is None else {"rot_lim": rot_lim}))
     draws = [sample_augmentation(conf, i % 4 != 0, rng) for i in range(24)]
     assert any(p.flip for p in draws) and any(p.rotate < 0 for p in draws)
     assert any(p.rotate > 0 for p in draws) and any(p.rotate == 0 for p in draws)
