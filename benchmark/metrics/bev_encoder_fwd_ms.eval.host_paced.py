@@ -1,0 +1,10 @@
+"""bev_encoder_fwd_ms.eval.host_paced: `bev_encoder_fwd_ms.eval` (`metrics/bev_encoder_fwd_ms.eval.py`) in the eval cells
+whose requests the host's dispatch paces: their host-clock rates and tails
+spread from run to run with the host's speed, so they are metrics of their
+own with a bound of their own."""
+from benchlib import manifest
+
+_base = manifest.reader("bev_encoder_fwd_ms.eval")
+SPANS = getattr(_base, "SPANS", ())
+FLOPS = getattr(_base, "FLOPS", False)
+read = _base.read

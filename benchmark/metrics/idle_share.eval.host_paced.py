@@ -1,0 +1,10 @@
+"""idle_share.eval.host_paced: `idle_share.eval` (`metrics/idle_share.eval.py`) in the eval cells
+whose requests the host's dispatch paces: their host-clock rates and tails
+spread from run to run with the host's speed, so they are metrics of their
+own with a bound of their own."""
+from benchlib import manifest
+
+_base = manifest.reader("idle_share.eval")
+SPANS = getattr(_base, "SPANS", ())
+FLOPS = getattr(_base, "FLOPS", False)
+read = _base.read

@@ -1,0 +1,9 @@
+"""trunk_fwd_ms.train: mean ms of the camera trunk's forward in the train
+window, by CUDA events that forward hooks record around the configuration's
+`stages.trunk` submodule."""
+SPANS = ("trunk",)
+
+
+def read(run):
+    spans = run.spans_ms.get("trunk", [])
+    return sum(spans) / len(spans) if run.kind == "train" and spans else None
