@@ -18,6 +18,7 @@ import torch
 from ..config import Config
 from ..nn.lss_modules import BevPost, EmbedderConv, EmbedderFlat, Predictor, SceneUnder
 from ..ops._precision import full_float32
+from ..utils import profiling
 from .lss import LSS
 
 # the BEV crop that the TXT branch reads: rows 60:140 of X, columns 56:144 of Y
@@ -53,7 +54,8 @@ class BevTxtOnlyBev(LSS):
     def forward(self, imgs, rots, trans, intrins, post_rots, post_trans):
         with full_float32():
             bev = super().forward(imgs, rots, trans, intrins, post_rots, post_trans)
-            act, desc = self.txt_branch(bev)
+            with profiling.span("heads", device=True):
+                act, desc = self.txt_branch(bev)
         return bev, act, desc
 
 
@@ -98,7 +100,9 @@ class BevTxt(LSS):
     def forward(self, imgs, rots, trans, intrins, post_rots, post_trans):
         with full_float32():
             cam_feats = self.encode_cameras(imgs)
-            bev = self.bevencode(
-                self.lift_to_bev(cam_feats, rots, trans, intrins, post_rots, post_trans))
-            act, desc = self.txt_branch(bev, cam_feats)
+            bev = self.lift_to_bev(cam_feats, rots, trans, intrins, post_rots, post_trans)
+            with profiling.span("bev_encoder", device=True, backward=True) as sp:
+                bev = sp.call(self.bevencode, bev)
+            with profiling.span("heads", device=True):
+                act, desc = self.txt_branch(bev, cam_feats)
         return bev, act, desc

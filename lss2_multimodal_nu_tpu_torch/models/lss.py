@@ -7,7 +7,10 @@ The stages are methods, so that BevTxt reuses them and a timer can call
 them one by one: `encode_cameras` (imgs -> camera features), `lift_to_bev`
 (camera features and calibration -> (B, Z*C, X, Y) BEV features) and
 `bevencode` (-> (B, seg_classes, X, Y) logits). `model.train()` puts batch
-norm on batch statistics and turns the trunk's drop-connect on.
+norm on batch statistics and turns the trunk's drop-connect on. While a
+torch.profiler session records, each stage records a span
+(`utils/profiling.py`): `trunk` (the `encoder`), `depth`, `lift_splat`,
+`bev_encoder` (`bevencode`), and the backwards of the first and the last.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ..core.grid import gen_dx_bx
 from ..nn.lss_modules import BevEncode, CamEncode, Encoder
 from ..ops._precision import full_float32
 from ..ops.lift_splat import lift_splat
+from ..utils import profiling
 
 
 class LSS(nn.Module):
@@ -46,22 +50,27 @@ class LSS(nn.Module):
     def encode_cameras(self, imgs):
         """imgs (B, N, 3, H, W) -> camera features (B*N, 512, H/16, W/16)."""
         b, n = imgs.shape[:2]
-        return self.encoder(imgs.reshape(b * n, *imgs.shape[2:]).to(self.dtype))
+        x = imgs.reshape(b * n, *imgs.shape[2:]).to(self.dtype)
+        with profiling.span("trunk", device=True, backward=True) as sp:
+            return sp.call(self.encoder, x)
 
     def lift_to_bev(self, cam_feats, rots, trans, intrins, post_rots, post_trans):
         """Depth distribution and features, frustum geometry, fused
         lift-splat -> (B, Z*C, X, Y) BEV features."""
         b, n = rots.shape[:2]
-        depth, feat = self.camencode(cam_feats)
+        with profiling.span("depth", device=True):
+            depth, feat = self.camencode(cam_feats)
         fh, fw = feat.shape[-2:]
         depth = depth.view(b, n, self.depth_bins, fh, fw)
         feat = feat.view(b, n, self.cam_c, fh, fw)
-        geom = get_geometry(self.frustum, rots, trans, intrins, post_rots, post_trans)
-        idx, valid = voxel_indices(geom, self.dx, self.bx, self.nx)
-        return lift_splat(feat, depth, idx, valid, self.nx)
+        with profiling.span("lift_splat", device=True):
+            geom = get_geometry(self.frustum, rots, trans, intrins, post_rots, post_trans)
+            idx, valid = voxel_indices(geom, self.dx, self.bx, self.nx)
+            return lift_splat(feat, depth, idx, valid, self.nx)
 
     def forward(self, imgs, rots, trans, intrins, post_rots, post_trans):
         with full_float32():
             cam_feats = self.encode_cameras(imgs)
-            return self.bevencode(
-                self.lift_to_bev(cam_feats, rots, trans, intrins, post_rots, post_trans))
+            bev = self.lift_to_bev(cam_feats, rots, trans, intrins, post_rots, post_trans)
+            with profiling.span("bev_encoder", device=True, backward=True) as sp:
+                return sp.call(self.bevencode, bev)

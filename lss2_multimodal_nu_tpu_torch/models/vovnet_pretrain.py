@@ -10,6 +10,7 @@ Its modules are the flagship's, under the flagship's names
 from __future__ import annotations
 
 from ..ops._precision import full_float32
+from ..utils import profiling
 from .vovnet_transformer import VoVNetBEVBranch
 
 # the components that the stage-1 checkpoint carries to stage 2
@@ -25,5 +26,6 @@ class VoVNetPreTrain(VoVNetBEVBranch):
         with full_float32():
             c3, c4 = self.encode_cameras(imgs)
             bev = self.lift_to_bev(c3, c4, rots, trans, intrins, post_rots, post_trans)
-            bev_seg, _ = self.bev_encoder(bev)
+            with profiling.span("bev_encoder", device=True, backward=True) as sp:
+                bev_seg, _ = sp.call(self.bev_encoder, bev)
         return bev_seg

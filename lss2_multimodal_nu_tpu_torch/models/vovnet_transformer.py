@@ -10,7 +10,11 @@ tail, kernel 4; seg head, kernel 5). TXT branch: AdaptiveFeaturePyramid(c3)
 fusion (V3) -> UnifiedPredictor. `model.train()` switches every module to
 its training path, the JAX package's `train=True`: batch norm on batch
 statistics, dropout, and the FFN tail and seg head op by op instead of
-kernels 4 and 5; the sampling's backward is kernel 2.
+kernels 4 and 5; the sampling's backward is kernel 2. While a
+torch.profiler session records, each stage records a span
+(`utils/profiling.py`): `trunk` (the `backbone`), `depth`, `lift_splat`,
+`bev_encoder`, `heads` (the TXT branch), and the backwards of the trunk and
+the BEV encoder.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from ..nn.lss_modules import SceneUnder
 from ..nn.vovnet import VoVNetBackbone
 from ..ops._precision import full_float32
 from ..ops.lift_splat import lift_splat
+from ..utils import profiling
 
 
 class VoVNetBEVBranch(nn.Module):
@@ -69,21 +74,25 @@ class VoVNetBEVBranch(nn.Module):
         training, without autograd, for its batch-norm statistics."""
         b, n = imgs.shape[:2]
         with_c4 = self.cfg.model.lss_version == "v2"
-        feats = self.backbone(imgs.reshape(b * n, *imgs.shape[2:]).to(self.dtype), with_c4)
+        x = imgs.reshape(b * n, *imgs.shape[2:]).to(self.dtype)
+        with profiling.span("trunk", device=True, backward=True) as sp:
+            feats = sp.call(self.backbone, x, with_c4)
         return feats["c3"], feats.get("c4")
 
     def lift_to_bev(self, c3, c4, rots, trans, intrins, post_rots, post_trans):
         """Depth and feature heads, frustum geometry, fused lift-splat ->
         (B, Z*C, X, Y) BEV features."""
         b, n = rots.shape[:2]
-        depth = self.depth_net(c3, c4)  # (B*N, D, fH, fW)
-        feat = self.cam_encode(c3)  # (B*N, C, fH, fW)
+        with profiling.span("depth", device=True):
+            depth = self.depth_net(c3, c4)  # (B*N, D, fH, fW)
+            feat = self.cam_encode(c3)  # (B*N, C, fH, fW)
         fh, fw = feat.shape[-2:]
         depth = depth.view(b, n, self.depth_bins, fh, fw)
         feat = feat.view(b, n, self.cam_c, fh, fw)
-        geom = get_geometry(self.frustum, rots, trans, intrins, post_rots, post_trans)
-        idx, valid = voxel_indices(geom, self.dx, self.bx, self.nx)
-        return lift_splat(feat, depth, idx, valid, self.nx)
+        with profiling.span("lift_splat", device=True):
+            geom = get_geometry(self.frustum, rots, trans, intrins, post_rots, post_trans)
+            idx, valid = voxel_indices(geom, self.dx, self.bx, self.nx)
+            return lift_splat(feat, depth, idx, valid, self.nx)
 
 
 class VoVNetBEVTransformer(VoVNetBEVBranch):
@@ -127,6 +136,8 @@ class VoVNetBEVTransformer(VoVNetBEVBranch):
         with full_float32():
             c3, c4 = self.encode_cameras(imgs)
             bev = self.lift_to_bev(c3, c4, rots, trans, intrins, post_rots, post_trans)
-            bev_seg, bev_refined = self.bev_encoder(bev)
-            action, desc = self.txt_branch(c3, bev_refined)
+            with profiling.span("bev_encoder", device=True, backward=True) as sp:
+                bev_seg, bev_refined = sp.call(self.bev_encoder, bev)
+            with profiling.span("heads", device=True):
+                action, desc = self.txt_branch(c3, bev_refined)
         return bev_seg, action, desc

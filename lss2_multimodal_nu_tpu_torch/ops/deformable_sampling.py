@@ -22,6 +22,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
+from ..utils import profiling
 from .lift_splat import sort_points_plain
 
 # Points of one cell that a lane group of the dv pass sums itself; the
@@ -230,6 +231,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+@profiling.op("op.deformable_sample")
 def _forward(v, lx, ly, attn, h, w):
     """The forward on v's device: the plain version on the CPU, else the
     kernel (v float32 or bfloat16; lx, ly, attn are cast to float32)."""
@@ -315,6 +317,7 @@ def _backward_steps(v, lx, ly, attn, g, h: int, w: int):
     return {"keys and sort": sort, "dv": dv_pass, "query": query}, (dv, dlx, dly, dattn)
 
 
+@profiling.op("op.deformable_sample_backward")
 def deformable_sample_combine_xy_backward(v, lx, ly, attn, g, h: int, w: int):
     """(dv, dlx, dly, dattn) in the dtypes of (v, lx, ly, attn) for the
     cotangent g (BH, N, dh) of the output.

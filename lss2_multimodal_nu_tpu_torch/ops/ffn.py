@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..utils import profiling
 from ._precision import full_float32
 from ._tf32 import permute_k8, split_tf32
 
@@ -52,6 +53,7 @@ _SYMBOL = {torch.float32: "ffn_ln_f32", torch.bfloat16: "ffn_ln_bf16"}
 WIDTH, HIDDEN = 256, 1024  # the widths the kernel is compiled for
 
 
+@profiling.op("op.ffn_ln")
 def fused_ffn_ln(u, w1, b1, w2, b2, scale1, bias1, scale2, bias2,
                  eps: float = 1e-6, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """u (B, N, C) -> LN2(LN1(u) + FFN(LN1(u))).

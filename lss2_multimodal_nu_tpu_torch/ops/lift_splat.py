@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils import profiling
 
 
 def fused_lift_splat_plain(feat, depth, seg, fidx, n_voxels: int) -> torch.Tensor:
@@ -166,6 +167,7 @@ def _rows_for_kernel(t, c):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+@profiling.op("op.lift_splat")
 def _forward(feat, depth, seg, fidx, n_voxels: int) -> torch.Tensor:
     """The forward on feat's device: the plain version on the CPU, else one
     call into `csrc/lift_splat.cu`: the CSR of the points by voxel (as
@@ -198,6 +200,7 @@ def _forward(feat, depth, seg, fidx, n_voxels: int) -> torch.Tensor:
     return out
 
 
+@profiling.op("op.lift_splat_backward")
 def fused_lift_splat_backward(feat, depth, seg, fidx, g, *, _fidx_csr=None):
     """(dfeat, ddepth) of `fused_lift_splat` for the cotangent g (B,
     n_voxels, C), in the dtypes of (feat, depth); ddepth covers every point,

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..utils import profiling
 from ._precision import full_float32
 from ._tf32 import split_tf32
 
@@ -56,6 +57,7 @@ def fused_seg_head_plain(x, w0, b0, w1, b1, w2, b2, h: int, w: int) -> torch.Ten
 _SYMBOL = {torch.float32: "seg_head_f32", torch.bfloat16: "seg_head_bf16"}
 
 
+@profiling.op("op.seg_head")
 def fused_seg_head(x, w0, b0, w1, b1, w2, b2, h: int, w: int) -> torch.Tensor:
     """x (B, h*w, 256), the transformer's token layout -> (B, out, h, w)
     float32 logits. A CPU tensor takes the plain version; a CUDA tensor

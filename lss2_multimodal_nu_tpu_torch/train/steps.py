@@ -17,6 +17,9 @@ outside the model's forward. A train step also holds cuDNN to deterministic
 algorithms (`ops/_precision.py::deterministic_cudnn`): with the port's
 kernels, which sum in fixed orders, a step on one card repeats bit for bit
 from the same state and batch (loss, gradients, weights, Adam's moments).
+While a torch.profiler session records, the steps record spans
+(`utils/profiling.py`): `train_step` with its `forward`, `backward` and
+`optimizer`, and `eval_step`, each with host and device time.
 
 In a group of more than one rank (`parallel/`), each rank runs its shard of
 the global batch: batch norm and the loss normalisers take the global
@@ -41,6 +44,7 @@ from ..ops._precision import deterministic_cudnn, full_float32
 from ..nn.layers import DropConnect
 from ..parallel import multihost
 from ..parallel.mesh import reduce_gradients
+from ..utils import profiling
 from .losses import cross_entropy_ignore, multi_loss, multi_task_loss, simple_loss
 from .metrics import confusion_matrix_update
 
@@ -108,23 +112,29 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     mark = mark or (lambda part: None)
     cfg = model.cfg
     device = batch["imgs"].device
-    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
-        torch.manual_seed(_step_seed(cfg.train.seed, step))
-        out = model(*(batch[k] for k in MODEL_INPUTS))
-        loss, metrics = compute_loss(cfg, out, batch)
-        mark("forward")
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        reduce_gradients(model)
-        mark("backward")
-    watch = grad_watch_summaries(_grads_by_module(model)) if cfg.train.watch_gradients else {}
-    grad_norm = torch.nn.utils.clip_grad_norm_(model.parameters(), cfg.train.max_grad_norm)
-    if hasattr(grad_norm, "full_tensor"):  # FSDP2: the DTensor of the global norm
-        grad_norm = grad_norm.full_tensor()
-    optimizer.step()
-    scheduler.step()
-    mark("optimizer")
-    return {**_global_metrics(metrics), "grad_norm": grad_norm, **watch}
+    with profiling.span("train_step", device=True):
+        with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+            torch.manual_seed(_step_seed(cfg.train.seed, step))
+            with profiling.span("forward", device=True):
+                out = model(*(batch[k] for k in MODEL_INPUTS))
+                loss, metrics = compute_loss(cfg, out, batch)
+            mark("forward")
+            with profiling.span("backward", device=True):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                reduce_gradients(model)
+            mark("backward")
+        with profiling.span("optimizer", device=True):
+            watch = (grad_watch_summaries(_grads_by_module(model))
+                     if cfg.train.watch_gradients else {})
+            grad_norm = torch.nn.utils.clip_grad_norm_(model.parameters(),
+                                                       cfg.train.max_grad_norm)
+            if hasattr(grad_norm, "full_tensor"):  # FSDP2: the DTensor of the global norm
+                grad_norm = grad_norm.full_tensor()
+            optimizer.step()
+            scheduler.step()
+        mark("optimizer")
+        return {**_global_metrics(metrics), "grad_norm": grad_norm, **watch}
 
 
 def _global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -182,14 +192,15 @@ def eval_step(model: torch.nn.Module, batch: Batch, confmat: torch.Tensor) -> Di
     if model.training:
         raise ValueError("eval_step needs the model in eval mode (model.eval())")
     cfg = model.cfg
-    out = model(*(batch[k] for k in MODEL_INPUTS))
-    loss, _ = compute_loss(cfg, out, batch)
-    multitask = cfg.model.family not in BEV_ONLY
-    bev = out[0] if multitask else out
-    confmat = confusion_matrix_update(confmat, batch["binimg"], bev.argmax(dim=1),
-                                      cfg.model.seg_classes)
-    res = {"confmat": confmat, "loss": loss, "bsize": bev.shape[0]}
-    if multitask:
-        res["act_pred"] = torch.sigmoid(out[1].float()) > 0.5
-        res["desc_pred"] = torch.sigmoid(out[2].float()) > 0.5
+    with profiling.span("eval_step", device=True):
+        out = model(*(batch[k] for k in MODEL_INPUTS))
+        loss, _ = compute_loss(cfg, out, batch)
+        multitask = cfg.model.family not in BEV_ONLY
+        bev = out[0] if multitask else out
+        confmat = confusion_matrix_update(confmat, batch["binimg"], bev.argmax(dim=1),
+                                          cfg.model.seg_classes)
+        res = {"confmat": confmat, "loss": loss, "bsize": bev.shape[0]}
+        if multitask:
+            res["act_pred"] = torch.sigmoid(out[1].float()) > 0.5
+            res["desc_pred"] = torch.sigmoid(out[2].float()) > 0.5
     return res
