@@ -53,6 +53,14 @@ Phases (any failure exits non-zero):
      float32 and bfloat16: the forward at B=6 and B=1, the backward at B=6,
      against their plain versions with phase 2's limits, repeated bit for
      bit, timed beside their bounds and `index_add_`;
+  2d. kernel 8, the VoVNet-39 trunk's float32 convs (`ops/conv.py`), at
+     each distinct trunk conv at 48 images (B=8 x 6 cameras) of 128x352:
+     against its plain version (cuDNN float32, TF32 off, which is also the
+     library call it replaces) to 1e-4, repeated bit for bit, timed beside
+     its bound (three TF32 passes) and summed over the eval trunk's 26
+     convs at LSS v1 (the benchmark's and the CLI's train-v2 model); its
+     launches are counted on the main path's own runs with the other
+     kernels' (`expected_launches`);
   7. Stack A: BevTxt, the published model (EfficientNet-b4, C=64, float32,
      the JAX CLI's defaults), its eval forward at B=1 (predict) and B=6
      through `build_model`: one lift-splat launch and no host sync a forward,
@@ -354,7 +362,8 @@ def time_ms(fn, reps=20, warmup=3):
 # substrings of the port's own kernel names, as the profiler lists them
 PORT_KERNEL_NAMES = ("deform_sample", "lift_splat", "keys_kernel", "rowptr_kernel",
                      "DeviceRadixSortOnesweep", "ffn_ln", "conv3x3", "split_tf32",
-                     "jpeg_decode_kernel", "resize_h_kernel", "resize_v_kernel")
+                     "jpeg_decode_kernel", "resize_h_kernel", "resize_v_kernel",
+                     "conv_tf32x3")
 # host-side CUDA calls that make the host wait for the device
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaMemcpy", "cudaDeviceSynchronize")
 # substrings of the kernels of cuDNN's FFT convolutions (for one float32
@@ -716,10 +725,20 @@ def lift_backward_cases(dev):
     return cases
 
 
+# kernel 8's launches in one float32 VoVNet-39 flagship-family (eval
+# forward, train step), by LSS version: v1 reads c3 alone, so an eval
+# forward runs the stem's last two convs and stages 1-3's 24, and a train
+# step stage 4's 12 alone (run without autograd for its batch-norm
+# statistics; a gradient flows through the rest, which stays on cuDNN); v2
+# reads c4 as well: all 38 in eval, none in training. bfloat16 runs none.
+CONV_LAUNCHES = {"v1": (26, 12), "v2": (38, 0)}
+
 # kernel -> (source, the TPU kernel it replaces, launches per eval forward,
-# launches per train step). The `kernels` line's `launches` is the count in
-# the first path that runs the kernel: the eval forward for the four forward
-# kernels (its meaning since they were ported), the train step for the
+# launches per train step), the counts of the float32 flagship at LSS v1
+# where they depend on them (`expected_launches`). The `kernels` line's
+# `launches` is the count in the first path that runs the kernel: the eval
+# forward for the four forward kernels (its meaning since they were ported)
+# and, kernel 8, its float32 twin (phase 3b), the train step for the
 # backwards, which only training runs.
 KERNELS = {
     "deformable_sample": ("lss2_multimodal_nu_tpu_torch/csrc/deformable_sample.cu",
@@ -742,7 +761,19 @@ KERNELS = {
                   "lss2_multimodal_nu_tpu/data/dataset.py:202", 0, 0),
     "img_aug": ("lss2_multimodal_nu_tpu_torch/csrc/img_aug.cu",
                 "lss2_multimodal_nu_tpu/data/dataset.py:87", 0, 0),
+    "conv_tf32x3": ("lss2_multimodal_nu_tpu_torch/csrc/conv_tf32x3.cu",
+                    "none: the JAX package's convs are XLA's (lss2_multimodal_nu_tpu/nn/vovnet.py)",
+                    *CONV_LAUNCHES["v1"]),
 }
+
+
+def expected_launches(col, dtype="float32", lss_version="v1"):
+    """kernel -> launches in one flagship-family eval forward (col 2) or
+    train step (col 3) in `dtype` at `lss_version`: `KERNELS`' counts,
+    kernel 8's from `CONV_LAUNCHES`."""
+    want = {name: k[col] for name, k in KERNELS.items()}
+    want["conv_tf32x3"] = CONV_LAUNCHES[lss_version][col - 2] if dtype == "float32" else 0
+    return want
 
 
 def train_batch(dev, b, seed):
@@ -900,7 +931,8 @@ def eval_forward(dev, dtype, phase, wrappers):
         seg, action, desc = model(*inputs)
         torch.cuda.synchronize()
         launches = {name: f.launches for name, f in wrappers.items()}
-        expected = {name: k[2] for name, k in KERNELS.items()}
+        want = expected_launches(2, dtype, "v2")
+        expected = {name: want[name] for name in wrappers}
         print(f"main path launches, {short} forward: {launches}")
         if launches != expected:
             return launches, f"{short} launch counts {launches}, expected {expected}", None
@@ -2388,8 +2420,8 @@ CLI_THREADS = ["--worker_type", "thread"]
 
 def port_wrappers():
     """Every kernel's wrapper, whose `launches` counts its launches."""
+    from lss2_multimodal_nu_tpu_torch.ops import conv, ffn, img_aug, jpeg_idct
     from lss2_multimodal_nu_tpu_torch.ops import deformable_sampling as ds
-    from lss2_multimodal_nu_tpu_torch.ops import ffn, img_aug, jpeg_idct
     from lss2_multimodal_nu_tpu_torch.ops import lift_splat as ls
     from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
 
@@ -2398,7 +2430,8 @@ def port_wrappers():
             "lift_splat": ls.fused_lift_splat,
             "lift_splat_backward": ls.fused_lift_splat_backward,
             "ffn_ln": ffn.fused_ffn_ln, "seg_head": sh.fused_seg_head,
-            "jpeg_idct": jpeg_idct.decode, "img_aug": img_aug.augment}
+            "jpeg_idct": jpeg_idct.decode, "img_aug": img_aug.augment,
+            "conv_tf32x3": conv.conv2d_tf32x3}
 
 
 def _descendants_rss():
@@ -3083,7 +3116,7 @@ def parity_phase(wrappers, traces):
     from lss2_multimodal_nu_tpu_torch.port.parity import check_parity
 
     t0 = time.perf_counter()
-    expected = {"vovnet_transformer": {name: k[2] for name, k in KERNELS.items()},
+    expected = {"vovnet_transformer": expected_launches(2, "float32", "v2"),
                 "bev_txt": {name: int(name == "lift_splat") for name in wrappers}}
     out_dir = ROOT / "build" / "parity13"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3139,6 +3172,99 @@ def precision_flags():
             f"float32 matmul precision={torch.get_float32_matmul_precision()!r}")
 
 
+def trunk_convs(h=IMG_H, w=IMG_W, name="vovnet39"):
+    """(Cin, H, W, Cout, k, stride, stage) of every conv that kernel 8 runs
+    in VoVNetV2(name) at h x w, in order (stage 0: the stem); an eval
+    forward at LSS v1 runs those of stages 0-3, training stage 4's too."""
+    import math
+
+    from lss2_multimodal_nu_tpu_torch.nn.vovnet import TIMM_CONFIGS
+    from lss2_multimodal_nu_tpu_torch.ops import conv
+
+    stem, mids, outs, layers, blocks = TIMM_CONFIGS[name]
+    convs, cin = [], 3
+    for ch, s in zip(stem, (2, 1, 2)):
+        if conv.takes(cin, ch, 3, s, 1, h * w):
+            convs.append((cin, h, w, ch, 3, s, 0))
+        h, w, cin = conv.out_size(h, 3, s), conv.out_size(w, 3, s), ch
+    for st in range(4):
+        if st > 0:
+            h, w = math.ceil((h - 3) / 2) + 1, math.ceil((w - 3) / 2) + 1
+        for _ in range(blocks[st]):
+            c = cin
+            for _ in range(layers):
+                convs.append((c, h, w, mids[st], 3, 1, st + 1))
+                c = mids[st]
+            convs.append((cin + layers * mids[st], h, w, outs[st], 1, 1, st + 1))
+            cin = outs[st]
+    return convs
+
+
+def conv_inputs(dev, b, cin, h, w, cout, k, seed):
+    """ReLU'd normal activations (as the trunk's are), He-normal weights and
+    a bias, from a numpy seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (t(np.maximum(rng.normal(size=(b, cin, h, w)), 0)),
+            t(rng.normal(size=(cout, cin, k, k)) * np.sqrt(2.0 / (cin * k * k))),
+            t(rng.normal(0, 0.1, cout)))
+
+
+def conv_phase(dev):
+    """Phase 2d: kernel 8 at each distinct conv of the trunk at 48 images,
+    eval form (bias and ReLU), against its plain version, repeated, timed.
+    Returns (the summary row over the eval trunk at LSS v1, failure message
+    or None)."""
+    from collections import Counter
+
+    import torch
+
+    from lss2_multimodal_nu_tpu_torch.ops import conv
+
+    convs = trunk_convs()
+    n_eval = Counter(c[:6] for c in convs if c[6] < 4)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
+    ok = True
+    for i, key in enumerate(dict.fromkeys(c[:6] for c in convs)):
+        cin, h, w, cout, k, s = key
+        x, wt, bias = conv_inputs(dev, 8 * NCAM, cin, h, w, cout, k, seed=20 + i)
+        kernel = lambda: conv.conv2d_tf32x3(x, wt, bias, s, k // 2, relu=True)
+        plain = lambda: conv.conv2d_tf32x3_plain(x, wt, bias, s, k // 2, relu=True)
+        with torch.inference_mode():
+            got, ref = kernel(), plain()
+            repeats = bool(torch.equal(got, kernel()))
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            rel = err / max(float(ref.abs().max()), 1e-30)
+            passed = bool(torch.isfinite(got).all()) and rel <= 1e-4 and repeats
+            ok &= passed
+            ops = 2 * x.shape[0] * got.shape[2] * got.shape[3] * cout * cin * k * k
+            row = dict(name="conv_tf32x3", dtype="float32", conv=list(key), max_abs_err=err,
+                       max_rel_err=rel, rel_tol=1e-4, passed=passed, repeats_bit_for_bit=repeats,
+                       ms=time_ms(kernel), plain_ms=time_ms(plain, reps=10, warmup=1),
+                       bound_ms=ops / PEAK_OPS["tf32x3"] * 1e3, bound_by="operations", ops=ops,
+                       op_type="tf32x3", calls_eval_forward=n_eval[key])
+            del got, ref
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        print("kernel_check " + json.dumps(row))
+        for f in ("ms", "plain_ms", "bound_ms"):
+            total[f] += row[f] * n_eval[key]
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["max_rel_err"] = max(total["max_rel_err"], rel)
+        del x, wt, bias
+    torch.cuda.empty_cache()
+    if not ok:
+        return None, "kernel 8 disagrees with its plain version or does not repeat"
+    total.update(share_of_bound=total["bound_ms"] / total["ms"], bound_by="operations",
+                 library_ms=total["plain_ms"], composite_ms=None)
+    print(f"kernel 8 over the eval trunk's {sum(n_eval.values())} convs at 48 images: "
+          f"{json.dumps(total)}")
+    return total, None
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3179,7 +3305,7 @@ def main() -> int:
     print(f"build: {build_s:.1f} s for {sorted(built)}")
     for name, kernel, spill, used in ptxas_lines():
         print(f"  ptxas {name}: {kernel}: {spill}; {used}")
-    for name in ("ffn_ln", "seg_head"):
+    for name in ("ffn_ln", "seg_head", "conv_tf32x3"):
         print(f"  {name}: {tf32_hgmma_count(_build.BUILD_DIR / f'lib{name}.so')} TF32 HGMMA "
               "instructions in the library (cuobjdump -sass)")
 
@@ -3189,6 +3315,10 @@ def main() -> int:
         if not err:
             # ---- 2c. kernels 3 and 3b at Stack A's width, C=64
             c64_rows, err = lift_c64_checks(dev)
+    if err:
+        return _fail(err)
+    # ---- 2d. kernel 8 at the trunk's convs
+    conv_row, err = conv_phase(dev)
     if err:
         return _fail(err)
 
@@ -3259,7 +3389,7 @@ def main() -> int:
     try:
         model, opt, sched, batch = train_path(dev, "flagship bf16")
         train_launches, _, err = drive_train("flagship bf16", model, opt, sched, batch,
-                                                wrappers, {n: k[3] for n, k in KERNELS.items()})
+                                                wrappers, expected_launches(3, "bfloat16", "v2"))
     except torch.cuda.OutOfMemoryError:
         return _fail(f"the B={TRAIN_B} train step does not fit on the card: peak "
                      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB before the failure")
@@ -3429,15 +3559,19 @@ def main() -> int:
                                 loader_fed_train_steps=LOADER_STEPS, **dist_keys(name),
                                 dtype="uint8 -> float32", batch=TRAIN_B, **data_rows[name]))
             continue
-        if name in backward_outputs:
+        first, extra = launches, {}  # the bfloat16 eval forward's counts (phase 3)
+        if name == "conv_tf32x3":  # float32 alone: phase 2d's convs, phase 3b's forward
+            row, first = conv_row, by_dtype["float32"]
+            extra = dict(dtype="float32", batch=8 * NCAM)
+        elif name in backward_outputs:
             outs = [bwd_rows[(o, "bfloat16", "uniform")] for o in backward_outputs[name]]
             row = dict(outs[0], max_abs_err=max(r["max_abs_err"] for r in outs))
         else:
             row = rows[(name, "bfloat16", "uniform")]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name] if n_eval else train_launches[name],
-            launches_eval_forward=launches[name], launches_train_step=train_launches[name],
+            launches=first[name] if n_eval else train_launches[name],
+            launches_eval_forward=first[name], launches_train_step=train_launches[name],
             launches_pretrain_train_step=chain_launches[name],
             launches_pretrain_eval_step=pretrain_eval_launches[name],
             launches_flagship_f32_train_step=flagship_f32_launches[name],
@@ -3445,7 +3579,7 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             composite_ms=row.get("composite_ms"),
-            **({"parts_ms": row["parts_ms"]} if "parts_ms" in row else {}),
+            **({"parts_ms": row["parts_ms"]} if "parts_ms" in row else {}), **extra,
         ))
     # Stack A's lift-splat at C=64: the float32 B=6 rows (the CLI's default
     # precision and train's batch); launches from phases 7 (forward) and 8

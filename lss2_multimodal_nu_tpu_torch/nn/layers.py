@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv as conv_ops
 from ..ops.sampling import resize_bilinear
 from ..parallel import multihost
 
@@ -33,25 +34,39 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = Non
             relu: bool = False) -> torch.Tensor:
     """conv (+ batch norm) (+ ReLU) in x's dtype. Eval batch norm is folded
     into the conv's weights; train batch norm runs after the conv."""
-    w, b = conv.weight, conv.bias
     if bn is not None and bn.training:
+        w, b = conv.weight, conv.bias
         y = F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
                      conv.stride, conv.padding, conv.dilation, conv.groups)
-        bn.num_batches_tracked.add_(1)
-        if multihost.world() > 1:
-            y = global_batch_norm(y.float(), bn).to(x.dtype)
-        else:
-            y = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                             training=True, momentum=bn.momentum, eps=bn.eps).to(x.dtype)
-        return F.relu(y) if relu else y
+        return train_bn(y, bn, relu)
+    w, b = fold_bn(conv, bn)
+    y = F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
+                 conv.stride, conv.padding, conv.dilation, conv.groups)
+    return F.relu(y) if relu else y
+
+
+def fold_bn(conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d]):
+    """(weight, bias) of `conv` with eval batch norm `bn` folded in."""
+    w, b = conv.weight, conv.bias
     if bn is not None:
         g = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
         shift = bn.bias - bn.running_mean * g
         w = w * g[:, None, None, None]
         b = shift if b is None else shift + b * g
-    y = F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
-                 conv.stride, conv.padding, conv.dilation, conv.groups)
-    return F.relu(y) if relu else y
+    return w, b
+
+
+def train_bn(y: torch.Tensor, bn: nn.BatchNorm2d, relu: bool = False) -> torch.Tensor:
+    """Training batch norm (+ ReLU) of a conv's output y, statistics in
+    float32, the result in y's dtype; over the group's global batch at
+    world > 1."""
+    bn.num_batches_tracked.add_(1)
+    if multihost.world() > 1:
+        z = global_batch_norm(y.float(), bn).to(y.dtype)
+    else:
+        z = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                         training=True, momentum=bn.momentum, eps=bn.eps).to(y.dtype)
+    return F.relu(z) if relu else z
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -168,7 +183,12 @@ def conv2d(cin: int, cout: int, k: int, dilation: int = 1, stride: int = 1,
 
 
 class ConvBnAct(nn.Module):
-    """timm's ConvBnAct naming (`.conv`, `.bn`): conv without bias, BN, ReLU."""
+    """timm's ConvBnAct naming (`.conv`, `.bn`): conv without bias, BN, ReLU.
+    A float32 conv that no gradient flows through (eval, and training's
+    stage 4, run for its batch-norm statistics), of a shape that kernel 8
+    takes (`ops/conv.py::takes`), runs through `conv2d_tf32x3` (the plain
+    version on the CPU), the eval ReLU in its epilogue; every other conv
+    through `conv_bn`."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1):
         super().__init__()
@@ -176,7 +196,18 @@ class ConvBnAct(nn.Module):
         self.bn = nn.BatchNorm2d(cout)
 
     def forward(self, x):
-        return conv_bn(x, self.conv, self.bn, relu=True)
+        c = self.conv
+        if (x.dtype != torch.float32
+                or (torch.is_grad_enabled() and (x.requires_grad or c.weight.requires_grad))
+                or not conv_ops.takes(c.in_channels, c.out_channels, c.kernel_size, c.stride,
+                                      c.padding, x.shape[-2] * x.shape[-1], c.dilation,
+                                      c.groups)):
+            return conv_bn(x, c, self.bn, relu=True)
+        if self.bn.training:
+            y = conv_ops.conv2d_tf32x3(x, c.weight, c.bias, c.stride[0], c.padding[0])
+            return train_bn(y, self.bn, relu=True)
+        w, b = fold_bn(c, self.bn)
+        return conv_ops.conv2d_tf32x3(x, w, b, c.stride[0], c.padding[0], relu=True)
 
 
 class ConvBNReLU(nn.Sequential):

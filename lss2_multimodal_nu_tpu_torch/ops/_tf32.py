@@ -29,7 +29,7 @@ def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if t.dtype != torch.float32:
         raise ValueError(f"split_tf32 takes float32, not {t.dtype}")
     t = t.contiguous()
-    hi = ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    hi = round_tf32(t)
     return hi, t - hi
 
 
@@ -38,3 +38,17 @@ def permute_k8(w: torch.Tensor) -> torch.Tensor:
     each group of 8."""
     idx = torch.arange(w.shape[-1], device=w.device).view(-1, 8)[:, list(K8_ORDER)].reshape(-1)
     return w.index_select(-1, idx)
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """Float32 t rounded to TF32 to nearest, ties away from zero."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32_rn(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`split_tf32` with lo rounded to TF32 as well, as the trunk's conv
+    kernel splits (`csrc/conv_tf32x3.cu::split_tf32_rn`): the tensor cores
+    then read lo exactly, and hi + lo errs by at most 2^-22 of t (lo is at
+    most 2^-11 of t), half what truncating it would."""
+    hi, lo = split_tf32(t)
+    return hi, round_tf32(lo)

@@ -1138,3 +1138,137 @@ def test_loader_on_the_card_matches_the_cpu(dev, tmp_path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert batch["imgs"].shape == (2, 6, 3, 32, 88)
+
+
+# ---- kernel 8 (`ops/conv.py`): the VoVNet-39 trunk's float32 convs
+# (Cin, H, W, Cout, k, stride) of every distinct conv that runs on kernel 8
+# at 128 x 352, the stem's last two through stage 4
+TRUNK_CONVS = [
+    (64, 64, 176, 64, 3, 1), (64, 64, 176, 128, 3, 2), (128, 32, 88, 128, 3, 1),
+    (768, 32, 88, 256, 1, 1), (256, 16, 44, 160, 3, 1), (160, 16, 44, 160, 3, 1),
+    (1056, 16, 44, 512, 1, 1), (512, 8, 22, 192, 3, 1), (192, 8, 22, 192, 3, 1),
+    (1472, 8, 22, 768, 1, 1), (768, 8, 22, 192, 3, 1), (1728, 8, 22, 768, 1, 1),
+    (768, 4, 11, 224, 3, 1), (224, 4, 11, 224, 3, 1), (1888, 4, 11, 1024, 1, 1),
+    (1024, 4, 11, 224, 3, 1), (2144, 4, 11, 1024, 1, 1),
+]
+
+
+def _conv_inputs(dev, b, cin, h, w, cout, k, seed=12):
+    """ReLU'd normal activations (as the trunk's are), He-normal weights, a
+    bias; from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (t(np.maximum(rng.normal(size=(b, cin, h, w)), 0)),
+            t(rng.normal(size=(cout, cin, k, k)) * np.sqrt(2.0 / (cin * k * k))),
+            t(rng.normal(0, 0.1, cout)))
+
+
+@pytest.mark.parametrize("shape", TRUNK_CONVS, ids=lambda s: "x".join(map(str, s)))
+def test_conv_kernel_trunk_shapes(dev, shape):
+    """Kernel 8 at the trunk's shapes, B = 8 x 6 cameras, in its eval form
+    (bias and ReLU in the epilogue): within 1e-4 of its plain version's
+    largest output (cuDNN float32, TF32 off), the same bits on a second
+    call, and no further from float64 than twice cuDNN float32's distance
+    (`scripts/port_conv.py` holds it to the same limit), at the shapes where
+    cuDNN runs FFT tiling and at the 16 x 44 3x3s, where it runs a float32
+    implicit GEMM on the CUDA cores."""
+    from lss2_multimodal_nu_tpu_torch.ops import conv
+
+    cin, h, w, cout, k, s = shape
+    x, wt, bias = _conv_inputs(dev, 48, cin, h, w, cout, k)
+    with torch.inference_mode():
+        f = conv.conv2d_tf32x3
+        _check(lambda: f(x, wt, bias, s, k // 2, relu=True),
+               lambda: conv.conv2d_tf32x3_plain(x, wt, bias, s, k // 2, relu=True), 1e-4, f)
+        got = f(x, wt, bias, s, k // 2, relu=True)
+        assert torch.equal(got, f(x, wt, bias, s, k // 2, relu=True))
+        want = torch.relu(torch.nn.functional.conv2d(x.double(), wt.double(), bias.double(), s,
+                                                     k // 2))
+        err = float((got.double() - want).abs().max())
+        err_cudnn = float((conv.conv2d_tf32x3_plain(x, wt, bias, s, k // 2, relu=True).double()
+                           - want).abs().max())
+    assert err <= 2 * err_cudnn, (err, err_cudnn)
+
+
+# (B, Cin, H, W, Cout, k, stride, mt, n, tw): each instantiation at ragged
+# shapes, as `tests/test_torch_conv.py` replays them on the CPU
+CONV_TILES = [
+    (3, 40, 5, 13, 72, 3, 1, 1, 32, 8),
+    (2, 64, 20, 36, 64, 3, 1, 2, 64, 16),
+    (2, 32, 9, 22, 96, 3, 1, 2, 128, 14),
+    (2, 24, 8, 22, 192, 3, 1, 2, 64, 11),
+    (3, 48, 4, 11, 170, 3, 1, 1, 32, 11),
+    (2, 40, 6, 9, 200, 3, 1, 2, 128, 9),
+    (2, 64, 17, 35, 128, 3, 2, 1, 128, 8),
+    (4, 16, 6, 10, 64, 3, 2, 1, 128, 8),
+    (3, 48, 7, 12, 100, 1, 1, 1, 192, 0),
+    (2, 96, 11, 12, 256, 1, 1, 2, 128, 0),
+    (3, 72, 5, 8, 170, 1, 1, 1, 160, 0),
+    (2, 40, 6, 6, 200, 1, 1, 1, 192, 0),
+    (3, 24, 5, 4, 300, 1, 1, 2, 128, 0),
+]
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("case", CONV_TILES, ids=lambda c: "x".join(map(str, c)))
+def test_conv_kernel_ragged(dev, monkeypatch, case, relu):
+    """Every instantiation of kernel 8, each forced by its plan, at ragged
+    shapes: channels off 32, partial N tiles, images stacked under one tile,
+    tiles past the last column; against the plain version within 1e-4, the
+    train form (no bias, no ReLU) too."""
+    from lss2_multimodal_nu_tpu_torch.ops import conv
+
+    b, cin, h, w, cout, k, s, mt, n, tw = case
+    p = conv.tile_plan(b, cin, h, w, cout, k, s, mt, n, tw)
+    monkeypatch.setattr(conv, "plan", lambda *a: p)
+    x, wt, bias = _conv_inputs(dev, b, cin, h, w, cout, k, seed=13)
+    bias = bias if relu else None
+    f = conv.conv2d_tf32x3
+    with torch.inference_mode():
+        _check(lambda: f(x, wt, bias, s, k // 2, relu=relu),
+               lambda: conv.conv2d_tf32x3_plain(x, wt, bias, s, k // 2, relu=relu), 1e-4, f)
+
+
+def test_conv_split_is_bitwise(dev):
+    """The card's split of a conv weight equals `tf32_split_weight_plain`
+    bit for bit, on values of every magnitude and sign."""
+    from lss2_multimodal_nu_tpu_torch.ops import conv
+
+    rng, g, _ = _rng_tensors(dev, 14)
+    w = g(72, 40, 3, 3) * torch.from_numpy(10.0 ** rng.uniform(-30, 30, (72, 40, 3, 3))).float().to(dev)
+    got, want = conv.tf32_split_weight(w), conv.tf32_split_weight_plain(w)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_conv_kernel_refuses_grad(dev):
+    """Kernel 8 has no backward: a CUDA call that autograd would have to
+    differentiate raises (`ConvBnAct` sends such convs to cuDNN)."""
+    from lss2_multimodal_nu_tpu_torch.ops import conv
+
+    x, wt, bias = _conv_inputs(dev, 2, 64, 8, 12, 64, 3, seed=15)
+    with pytest.raises(RuntimeError, match="eval-only"):
+        conv.conv2d_tf32x3(x, wt.requires_grad_(), bias, 1, 1)
+    with torch.no_grad():
+        assert conv.conv2d_tf32x3(x, wt, bias, 1, 1).shape == (2, 64, 8, 12)
+
+
+def test_flagship_eval_forward_runs_trunk_convs_on_kernel8(dev):
+    """A float32 flagship eval forward at LSS v1 (c3 alone, as the
+    benchmark's) runs 26 convs on kernel 8: every ConvBnAct of VoVNet-39's
+    stem and stages 1-3 but the stem's first (Cin 3, K 27, on F.conv2d by
+    the shape rule); a bfloat16 forward none."""
+    import dataclasses
+
+    from lss2_multimodal_nu_tpu_torch.ops import conv
+
+    cfg = _small_models(dev)[1].cfg
+    build = lambda **m: build_model(dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, lss_version="v1", **m)), device=dev, seed=3)
+    args = [a.to(dev) for a in _camera_args()]
+    for model, want in ((build(), 26), (build(compute_dtype="bfloat16"), 0)):
+        before = conv.conv2d_tf32x3.launches
+        with torch.inference_mode():
+            model(*args)
+        torch.cuda.synchronize()
+        assert conv.conv2d_tf32x3.launches - before == want

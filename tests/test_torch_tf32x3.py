@@ -1,14 +1,17 @@
 """The numerical design of the float32 tensor-core kernels, on the CPU.
 
-The float32 FFN tail and seg head (`csrc/ffn_ln.cu`, `csrc/seg_head.cu`) run
-every product as three TF32 passes, a_hi b_hi + a_lo b_hi + a_hi b_lo, with
+The float32 FFN tail, seg head and trunk convs (`csrc/ffn_ln.cu`,
+`csrc/seg_head.cu`, `csrc/conv_tf32x3.cu`) run every product as three TF32
+passes, a_hi b_hi + a_lo b_hi + a_hi b_lo, with
 the split of `ops/_tf32.py`. Here, without a card: the split is exact; the
 three passes, emulated in plain torch (lo truncated to TF32 where the
 tensor cores read it, sums in float32), are as close to a float64 product
 as a float32 matmul; the kernels' float32 tolerance of 1e-4 tells three
 passes from one or from a dropped cross term; and the fragment mappings the
 kernels rely on (ldmatrix on a float tile, the accumulator fed back as the A
-operand against W2^T's permuted K) reproduce the plain product. The card's
+operand against W2^T's permuted K) reproduce the plain product; the trunk
+conv kernel's walk over K = Cin x 9 in 32-channel slices, taps and k-steps
+is as close as float32 at the trunk's depths. The card's
 split is held to `split_tf32` bit for bit in `tests/test_torch_kernels_cuda.py`.
 """
 import numpy as np
@@ -16,9 +19,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from lss2_multimodal_nu_tpu_torch.ops import ffn
+from lss2_multimodal_nu_tpu_torch.ops import conv, ffn
 from lss2_multimodal_nu_tpu_torch.ops import seg_head as sh
-from lss2_multimodal_nu_tpu_torch.ops._tf32 import K8_ORDER, permute_k8, split_tf32
+from lss2_multimodal_nu_tpu_torch.ops._tf32 import K8_ORDER, permute_k8, split_tf32, split_tf32_rn
 from test_torch_kernels_cuda import ffn_low_bits_inputs, seg_head_low_bits_inputs
 
 TOL = 1e-4  # the float32 kernels' tolerance (chip_smoke.py, the card tests)
@@ -227,3 +230,53 @@ def test_fragment_mapping(mapping):
             a[r, t], a[r + 8, t], a[r, t + 4], a[r + 8, t + 4] = a0, a1, a2, a3
             y += a @ w2t[:, 8 * kk:8 * kk + 8].T
         assert np.array_equal(y, h @ w2) == (order == K8_ORDER)
+
+
+def _conv_k_walk(a, ws, cross=True):
+    """Kernel 8's sum over K for a block of pixels: a (P, taps, Cin) the
+    pixels' inputs at each tap, ws (2, taps, Cout, Cin) the split weight;
+    32-channel slices (zeros past Cin), then taps; each (slice, tap) item's
+    partial sum takes the cross terms a_lo w_hi + a_hi w_lo of its 8-wide
+    k-steps (unless not `cross`), then a_hi w_hi of each (a split by
+    `split_tf32_rn`), and is added to the float32 accumulator."""
+    p, taps, cin = a.shape
+    acc = torch.zeros(p, ws.shape[2])
+    for s in range(0, cin, 32):
+        for t in range(taps):
+            part = torch.zeros_like(acc)
+            steps = [(split_tf32_rn(a[:, t, k:k + 8]), ws[:, t, :, k:k + 8].transpose(1, 2))
+                     for k in range(s, min(s + 32, cin), 8)]
+            for (ah, al), (wh, wl) in steps:
+                if cross:
+                    part += al @ wh
+                    part += ah @ wl
+            for (ah, _), (wh, _) in steps:
+                part += ah @ wh
+            acc += part
+    return acc
+
+
+@pytest.mark.parametrize("cin,k", [(128, 3), (224, 3), (1024, 3), (2144, 1)])
+def test_conv_k_tiling_three_passes(cin, k):
+    """Kernel 8's product over K = Cin k^2 walked as the kernel walks it,
+    with the weight split as it reads it ((2, taps, Cout, Cin),
+    `conv.tf32_split_weight_plain`: lo rounded to TF32, so hi + lo is the
+    weight to 2^-22 and the tensor cores read both exactly), at the trunk's
+    depths from stage 1's 3x3 (K 1152) to stage 4's widest concat (K 2144):
+    within 2e-6 of float64's largest output, as a float32 product is; one
+    TF32 pass misses by over 100x."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(np.maximum(rng.normal(size=(64, k * k, cin)), 0).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(96, cin, k, k)) * np.sqrt(2.0 / (cin * k * k)))
+                         .astype(np.float32))
+    ws = conv.tf32_split_weight_plain(w)
+    wt = w.flatten(2).permute(2, 0, 1)
+    assert ws.shape == (2, k * k, 96, cin)
+    assert torch.equal(ws[0], split_tf32(wt)[0]) and torch.equal(ws[1], _trunc(ws[1]))
+    assert bool(((ws[0].double() + ws[1].double() - wt.double()).abs()
+                 <= 2.0 ** -22 * wt.double().abs()).all())
+    want = torch.einsum("ptc,tnc->pn", a.double(), wt.double())
+    scale = float(want.abs().max())
+    err = lambda got: float((got.double() - want).abs().max()) / scale
+    assert err(_conv_k_walk(a, ws)) <= 2e-6
+    assert err(_conv_k_walk(a, ws, cross=False)) > 100 * 2e-6
